@@ -1,0 +1,579 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (unet_convlstm_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing JSON lines; any failure exits non-zero:
+
+1. device   — the card's name and power limit (nvidia-smi) and the build of
+              every kernel from ``unet_convlstm_tpu_torch/csrc``.
+2. kernel   — each kernel against its plain PyTorch version on the card, at
+              the serving path's shapes (B=4, T=4, 128x128, base_ch 64), with
+              its device time, the plain version's, a library yardstick's
+              and the least time the card could take (bound).
+3. serve    — a base_ch-64 TemporalUNetDualView from a seeded generator,
+              saved as a .pt with a norm_stats manifest and served through
+              StreamingPredictor(device="cuda"): 2 sessions x 3 requests of
+              4 frames with the launch counts read around them, then
+              streaming, predict_many, HTTP and kernels-on vs plain checks.
+4. latency  — request latency over 100 requests per geometry, and where
+              one request's device time goes (torch.profiler).
+
+The line before the last is {"kernels": [...]}; the last is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Without a card it exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import collections
+import http.client
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from unet_convlstm_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY
+from unet_convlstm_tpu_torch.models.registry import build_model
+from unet_convlstm_tpu_torch.models.temporal_unet import temporal_unet_apply
+from unet_convlstm_tpu_torch.ops.kernels import (build, convlstm_fused,
+                                                 doubleconv_fused,
+                                                 launch_counts,
+                                                 reset_launches)
+from unet_convlstm_tpu_torch.ops.normalize import (compute_norm_stats,
+                                                   normalize_x)
+from unet_convlstm_tpu_torch.serve import StreamingPredictor, serve_http
+from unet_convlstm_tpu_torch.train.checkpoint import save_checkpoint
+
+SEED = 0
+B, T, HW, BASE = 4, 4, 128, 64           # the serving path's geometry
+REQUESTS_PER_SESSION, SESSIONS = 3, 2
+LATENCY_REQUESTS = 100                   # p90 then has 10 samples beyond it
+HBM_BYTES_PER_S = 3.35e12                # H100 SXM data sheet
+BF16_OPS_PER_S = 989e12                  # dense tensor-core bf16, same
+L2_BYTES = 50 * 2 ** 20
+DEV = torch.device("cuda")
+
+# one request through the base_ch-64 model: (level, hidden C, launches)
+K1_LEVELS = [("bottleneck", 16 * BASE, HW // 16, T),
+             ("skip3", 8 * BASE, HW // 8, T),
+             ("skip2", 4 * BASE, HW // 4, T)]
+
+
+def k2_convs():
+    """Every fused conv of one request, as (H=W, cin, cout, prologue,
+    launches). Level i has BASE * 2^i channels on HW / 2^i maps; conv1 of
+    each DoubleConv has no prologue, conv2 applies BN1's. inc conv1
+    (cin = 2) is a library conv and not in the list."""
+    ch = [BASE << i for i in range(5)]
+    side = [HW >> i for i in range(5)]
+    convs = [(side[0], ch[0], ch[0], True)]                     # inc conv2
+    for i in range(1, 5):                                       # down1..3,
+        convs += [(side[i], ch[i - 1], ch[i], False),           # bottleneck
+                  (side[i], ch[i], ch[i], True)]
+    for i in range(3, -1, -1):                                  # up3..up0:
+        convs += [(side[i], ch[i + 1], ch[i], False),           # concat in
+                  (side[i], ch[i], ch[i], True)]
+    return [(*conv, n) for conv, n in collections.Counter(convs).items()]
+
+
+K2_CONVS = k2_convs()
+K1_PER_REQUEST = sum(n for *_, n in K1_LEVELS)
+K2_PER_REQUEST = sum(n for *_, n in K2_CONVS)
+
+# tolerances, with their reasons
+K1_TOL = ("h: 2^-8 absolute (one bf16 ulp of |h| <= 1: h is rounded to the "
+          "gates' dtype); c: 1e-5 * (1 + |c|) (f32 exp/tanh of another "
+          "library)")
+K2_TOL = ("y: 2^-7 * |y| + 1e-3 * max|y| (the f32 sums run in another order, "
+          "so a bf16 rounding may flip by one ulp); sum, sumsq: 1e-3 of the "
+          "sum of |y| resp. of sumsq (f32 atomics in no fixed order)")
+K2_F32_TOL = "y: 1e-4 * max|y| (f32 FMA in another order)"
+STREAM_TOL = 1e-2   # RMS error over RMS |y|: cuDNN's bf16 convs may pick
+#                     other algorithms for another batch size, which rounds
+#                     otherwise (a bf16 ulp is 2^-8); a lost or misrouted
+#                     state would be off by O(1)
+# The whole forward, kernels on against the plain path. In f32 they compute
+# the same sums in another order: 1e-3 of max|y|. In bf16 they round at
+# other places (the kernels add the bias in f32 and apply BN1 in f32 in the
+# prologue, the library path rounds after each), and bf16 alone puts either
+# path a few % (RMS) off the f32 forward on this calibrated random model.
+# So in bf16 the kernel path's RMS error against the f32 forward may be at
+# most 1.25 times the plain path's, and at most 10%.
+PATH_F32_TOL = 1e-3
+PATH_BF16_VS_F32_RATIO = 1.25
+PATH_BF16_RMS_TOL = 0.1
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def rms_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """RMS of a - b over RMS of b."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def device_ms(fn, arg_sets, n: int = 20) -> float:
+    """Device time of one ``fn(*args)``, in ms: ``n`` calls cycling over
+    ``arg_sets`` (copies that together exceed the L2 cache, so that each
+    call reads device memory as on the path) are enqueued behind a spin
+    kernel, so the events time the device's work and not the host's."""
+    for args in arg_sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*arg_sets[0])
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # spin long enough (at <= 2 GHz) for the host to enqueue all n calls
+    torch.cuda._sleep(int(min(2e9, 4e9 * host_s * n + 2e6)))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i in range(n):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def copies(make, nbytes: int):
+    """Enough independent input sets to exceed twice the L2 cache."""
+    k = max(2, min(64, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+    return [make() for _ in range(k)]
+
+
+# ---------------------------------------------------------------------------
+# 1. device and build
+# ---------------------------------------------------------------------------
+
+def phase_device():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build_s = build.build_all()
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": build_s, "build_wall_s": time.perf_counter() - t0})
+    return smi
+
+
+# ---------------------------------------------------------------------------
+# 2. kernels against their plain versions, timed
+# ---------------------------------------------------------------------------
+
+def check_k1(gen):
+    """K1 at the three recurrence levels: checks and per-request times."""
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+    for level, C, side, launches in K1_LEVELS:
+        rows = B * side * side
+
+        def make():
+            gates = torch.randn(rows, 4 * C, device=DEV, generator=gen) * 2
+            return (gates.to(torch.bfloat16),
+                    torch.randn(rows, C, device=DEV, generator=gen))
+
+        gates, c = make()
+        h_k, c_k = convlstm_fused.fused_gate_update(gates, c)
+        h_p, c_p = convlstm_fused.gate_update_plain(gates, c)
+        torch.cuda.synchronize()
+        dh = (h_k.float() - h_p.float()).abs().max().item()
+        dc = ((c_k - c_p).abs() / (1 + c_p.abs())).max().item()
+        ok = dh <= 2 ** -8 and dc <= 1e-5
+        nbytes = rows * C * (4 * 2 + 4 + 2 + 4)
+        args = copies(make, nbytes)
+        ms = device_ms(convlstm_fused.fused_gate_update, args)
+        plain_ms = device_ms(convlstm_fused.gate_update_plain, args)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        emit({"phase": "kernel", "kernel": "gate_update", "level": level,
+              "rows": rows, "C": C, "dtype": "bfloat16", "h_abs_err": dh,
+              "c_rel_err": dc, "ok": ok, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "launches_per_request": launches})
+        if not ok:
+            raise AssertionError(f"gate_update disagrees at {level}")
+        total["ms"] += ms * launches
+        total["plain_ms"] += plain_ms * launches
+        total["bound_ms"] += bound_ms * launches
+        total["max_abs_err"] = max(total["max_abs_err"], dh, dc)
+    return total
+
+
+def k2_library(x, w, b, inv, shift):
+    """The same function from library calls: normalize+ReLU, cuDNN's
+    conv, two reductions (a yardstick; the port never calls it)."""
+    z = torch.relu(x * inv.to(x.dtype) + shift.to(x.dtype)) \
+        if inv is not None else x
+    y = F.conv2d(z.permute(0, 3, 1, 2), w, b.to(x.dtype), padding=1
+                 ).permute(0, 2, 3, 1)
+    yf = y.float()
+    return y, yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))
+
+
+def _k2_inputs(gen, side, cin, cout, prologue, dtype):
+    def rand(*shape, normal=True):
+        f = torch.randn if normal else torch.rand
+        return f(*shape, device=DEV, generator=gen)
+
+    x = rand(B * T, side, side, cin).to(dtype)
+    w = (rand(cout, cin, 3, 3) / (3 * cin ** 0.5)).to(dtype)
+    b = rand(cout) * 0.1
+    inv = rand(cin, normal=False) + 0.5 if prologue else None
+    shift = rand(cin) * 0.3 if prologue else None
+    return x, w, b, inv, shift
+
+
+def _k2_errors(args, f32: bool):
+    y, s, q = doubleconv_fused.fused_conv3x3(*args)
+    yp, sp, qp = doubleconv_fused.fused_conv3x3_plain(*args)
+    torch.cuda.synchronize()
+    d = (y.float() - yp.float()).abs()
+    scale = yp.float().abs().max().item()
+    if f32:
+        ok = d.max().item() <= 1e-4 * scale
+    else:
+        ok = bool((d <= 2 ** -7 * yp.float().abs() + 1e-3 * scale).all())
+    s_rel = ((s - sp).abs().max() / yp.float().abs().sum(dim=(0, 1, 2)).max()
+             ).item()
+    q_rel = ((q - qp).abs().max() / qp.max()).item()
+    ok = ok and s_rel <= 1e-3 and q_rel <= 1e-3
+    return ok, d.max().item(), scale, s_rel, q_rel
+
+
+def check_k2(gen):
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                 max_abs_err=0.0, ops_ms=0.0, bytes_ms=0.0)
+    bf16 = torch.bfloat16
+    for side, cin, cout, prologue, launches in K2_CONVS:
+        # both prologue settings at every shape, bf16
+        for pro in (prologue, not prologue):
+            args = _k2_inputs(gen, side, cin, cout, pro, bf16)
+            ok, err, scale, s_rel, q_rel = _k2_errors(args, f32=False)
+            line = {"phase": "kernel", "kernel": "conv3x3_fused",
+                    "shape": [B * T, side, side, cin, cout], "prologue": pro,
+                    "dtype": "bfloat16", "y_abs_err": err, "y_scale": scale,
+                    "sum_rel_err": s_rel, "sumsq_rel_err": q_rel, "ok": ok}
+            if pro != prologue:
+                emit(line)
+                if not ok:
+                    raise AssertionError(f"conv3x3_fused disagrees: {line}")
+                continue
+            m = B * T * side * side
+            nbytes = 2 * (m * cin + 9 * cin * cout + m * cout) \
+                + 4 * (cout + 2 * cin + 2 * cout)
+            ops_ms = 2 * m * 9 * cin * cout / BF16_OPS_PER_S * 1e3
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            sets = copies(lambda: _k2_inputs(gen, side, cin, cout, pro,
+                                             bf16), nbytes)
+            line["ms"] = device_ms(doubleconv_fused.fused_conv3x3, sets)
+            line["plain_ms"] = device_ms(
+                doubleconv_fused.fused_conv3x3_plain, sets)
+            line["library_ms"] = device_ms(k2_library, sets)
+            line["bound_ms"] = max(ops_ms, bytes_ms)
+            line["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+            line["tflops"] = 2 * m * 9 * cin * cout / line["ms"] / 1e9
+            line["launches_per_request"] = launches
+            emit(line)
+            if not ok:
+                raise AssertionError(f"conv3x3_fused disagrees: {line}")
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                total[k] += line[k] * launches
+            total["ops_ms"] += ops_ms * launches
+            total["bytes_ms"] += bytes_ms * launches
+            total["max_abs_err"] = max(total["max_abs_err"], err)
+    # the f32 route (FP32 policy) at the widest and the largest map
+    for side, cin, cout in ((8, 1024, 1024), (128, 64, 64)):
+        args = _k2_inputs(gen, side, cin, cout, True, torch.float32)
+        ok, err, scale, s_rel, q_rel = _k2_errors(args, f32=True)
+        emit({"phase": "kernel", "kernel": "conv3x3_fused",
+              "shape": [B * T, side, side, cin, cout], "prologue": True,
+              "dtype": "float32", "y_abs_err": err, "y_scale": scale,
+              "sum_rel_err": s_rel, "sumsq_rel_err": q_rel, "ok": ok})
+        if not ok:
+            raise AssertionError("conv3x3_fused (f32) disagrees")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# 3. serving
+# ---------------------------------------------------------------------------
+
+def _bn_owner(model, name):
+    """The DoubleConv behind a key of the stats tree."""
+    block = getattr(model, name)
+    if name in ("down1", "down2", "down3", "bottleneck"):
+        return block.net[1]
+    return block.conv if name.startswith("up") else block
+
+
+def calibrate_bn(model, x):
+    """Set every BatchNorm's running statistics to the batch statistics of
+    one train-mode forward over ``x``, as training would leave them, so
+    that the random model's activations keep unit scale through its depth
+    (with untouched running stats they shrink layer by layer)."""
+    with torch.inference_mode():
+        _, _, stats = temporal_unet_apply(model, x, train=True)
+    momentum = 0.1
+    for name, s in stats.items():
+        dc = _bn_owner(model, name)
+        s = s.get("conv", s)
+        for bn, (mean, var) in ((dc.bn1, s["bn1"]), (dc.bn2, s["bn2"])):
+            # new = (1 - m) * old + m * batch  →  batch
+            with torch.no_grad():
+                bn.running_mean.copy_(
+                    (mean - (1 - momentum) * bn.running_mean) / momentum)
+                bn.running_var.copy_(
+                    (var - (1 - momentum) * bn.running_var) / momentum)
+
+
+def _post(conn, path, body, headers=None):
+    conn.request("POST", path, body=body, headers=headers or {})
+    r = conn.getresponse()
+    data = r.read()
+    if r.status != 200:
+        raise AssertionError(f"POST {path}: HTTP {r.status} {data[:200]!r}")
+    return r, data
+
+
+def phase_serve(workdir: str):
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    model_cfg = {"type": "custom", "base_ch": BASE}
+    cfg, init, _, _ = build_model(model_cfg)
+    model = init(torch.Generator().manual_seed(SEED), device=DEV)
+    # raw frames (radiance-like, >= 0) and targets (velocity-like) for the
+    # manifest; one request's worth calibrates BatchNorm
+    X = (rng.gamma(2.0, 0.6, (8, T, HW, HW, 2))).astype(np.float32)
+    Y = (rng.standard_normal((8, T, HW, HW, 1)) * 5).astype(np.float32)
+    norm = compute_norm_stats(X, Y)
+    calibrate_bn(model, normalize_x(torch.from_numpy(X[:B]).to(DEV), norm))
+    ckpt = save_checkpoint(os.path.join(workdir, "model.pt"),
+                           model.state_dict(), model_cfg, norm.to_dict())
+    del model
+    pred = StreamingPredictor(ckpt, device=DEV)
+    pred.warmup(B, HW, HW, T)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in pred.model.parameters())
+    emit({"phase": "serve_setup", "config": cfg.to_dict(),
+          "params": n_params, "checkpoint_mb": os.path.getsize(ckpt) / 2**20,
+          "setup_s": time.perf_counter() - t0})
+
+    frames = (rng.gamma(2.0, 0.6, (SESSIONS, REQUESTS_PER_SESSION, B, T, HW,
+                                   HW, 2))).astype(np.float32)
+
+    # -- the main path, with the launch counts read around it -------------
+    sids = [pred.open_session(B, HW, HW) for _ in range(SESSIONS)]
+    reset_launches()
+    outs = []
+    for r in range(REQUESTS_PER_SESSION):
+        for s, sid in enumerate(sids):
+            outs.append(pred.predict(sid, frames[s, r]))
+    counts = launch_counts()
+    requests = SESSIONS * REQUESTS_PER_SESSION
+    expect = {"gate_update": K1_PER_REQUEST * requests,
+              "conv3x3_fused": K2_PER_REQUEST * requests}
+    finite = all(np.isfinite(y).all() for y in outs)
+    shapes_ok = all(y.shape == (B, T, HW, HW, cfg.out_channels) for y in outs)
+    emit({"phase": "serve_main_path", "requests": requests, "B": B, "T": T,
+          "H": HW, "W": HW, "launches": counts, "expected": expect,
+          "finite": finite, "shapes_ok": shapes_ok,
+          "y_abs_max": float(max(np.abs(y).max() for y in outs))})
+    if counts != expect or not finite or not shapes_ok:
+        raise AssertionError("serving main path: wrong launch counts or "
+                             "outputs")
+
+    checks = {}
+    # one 4-frame request equals four 1-frame requests
+    x = frames[0, 0]
+    sa, sb = pred.open_session(B, HW, HW), pred.open_session(B, HW, HW)
+    y_all = torch.from_numpy(pred.predict(sa, x))
+    y_steps = torch.from_numpy(np.concatenate(
+        [pred.predict(sb, x[:, t:t + 1]) for t in range(T)], axis=1))
+    checks["streaming_rms"] = rms_rel_err(y_steps, y_all)
+    # predict_many equals per-session predicts
+    sc, sd, se, sf = (pred.open_session(B, HW, HW) for _ in range(4))
+    many = pred.predict_many([sc, sd], [frames[0, 0], frames[1, 0]])
+    single = [pred.predict(se, frames[0, 0]), pred.predict(sf, frames[1, 0])]
+    checks["predict_many_rms"] = max(rms_rel_err(torch.from_numpy(a),
+                                                 torch.from_numpy(b))
+                                     for a, b in zip(many, single))
+    # one HTTP round trip
+    server = serve_http(pred, "127.0.0.1", 0)
+    try:
+        conn = http.client.HTTPConnection(*server.server_address,
+                                          timeout=300)
+        _, body = _post(conn, "/v1/session", json.dumps(
+            {"batch": B, "height": HW, "width": HW}))
+        sid = json.loads(body)["session_id"]
+        xb = np.ascontiguousarray(x, "<f4")
+        r, body = _post(conn, f"/v1/predict/{sid}", xb.tobytes(),
+                        {"X-Shape": ",".join(map(str, xb.shape))})
+        shape = tuple(int(v) for v in r.getheader("X-Shape").split(","))
+        y_http = torch.from_numpy(np.frombuffer(body, "<f4").reshape(shape)
+                                  .copy())
+        conn.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+    checks["http"] = rel_err(y_http, y_all)
+    # the whole forward with the kernels on against the plain path
+    xn = normalize_x(torch.from_numpy(frames[1, 2]).to(DEV), pred.norm_stats)
+    y = {}
+    with torch.inference_mode():
+        for tag, policy in (("bf16", DEFAULT_POLICY), ("f32", FP32_POLICY)):
+            y[tag, "kernels"] = temporal_unet_apply(
+                pred.model, xn, policy=policy, use_pallas=True,
+                use_fused_doubleconv=True)[0]
+            y[tag, "plain"] = temporal_unet_apply(pred.model, xn,
+                                                  policy=policy)[0]
+    ref = y["f32", "plain"]
+    checks["kernels_vs_plain_f32"] = rel_err(y["f32", "kernels"], ref)
+    checks["kernels_vs_plain_bf16_rms"] = rms_rel_err(y["bf16", "kernels"],
+                                                      y["bf16", "plain"])
+    checks["kernels_bf16_vs_f32_rms"] = rms_rel_err(y["bf16", "kernels"], ref)
+    checks["plain_bf16_vs_f32_rms"] = rms_rel_err(y["bf16", "plain"], ref)
+    tols = {"streaming_rms": STREAM_TOL, "predict_many_rms": STREAM_TOL,
+            "http": 1e-6, "kernels_vs_plain_f32": PATH_F32_TOL,
+            "kernels_bf16_vs_f32_rms": min(
+                PATH_BF16_RMS_TOL,
+                PATH_BF16_VS_F32_RATIO * checks["plain_bf16_vs_f32_rms"])}
+    ok = all(checks[k] <= tols[k] for k in tols)
+    emit({"phase": "serve_checks", "rel_err": checks, "tol": tols,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"serving checks failed: {checks}")
+    return pred, counts
+
+
+# ---------------------------------------------------------------------------
+# 4. latency and where the time goes
+# ---------------------------------------------------------------------------
+
+def phase_latency(pred):
+    rng = np.random.default_rng(SEED + 1)
+    out = []
+    for b, t in ((B, T), (1, 1)):
+        sid = pred.open_session(b, HW, HW)
+        x = rng.gamma(2.0, 0.6, (b, t, HW, HW, 2)).astype(np.float32)
+        for _ in range(3):
+            pred.predict(sid, x)
+        ms = []
+        for _ in range(LATENCY_REQUESTS):
+            t0 = time.perf_counter()
+            pred.predict(sid, x)          # ends in a copy to the host
+            ms.append((time.perf_counter() - t0) * 1e3)
+        pred.close_session(sid)
+        out.append({"B": b, "T": t, "H": HW, "W": HW, "requests": len(ms),
+                    "p50_ms": statistics.median(ms),
+                    "p90_ms": sorted(ms)[int(0.9 * len(ms)) - 1],
+                    "max_ms": max(ms),
+                    "min_ms": min(ms),
+                    "frames_per_s_p50": b * t / statistics.median(ms) * 1e3})
+    emit({"phase": "latency", "runs": out})
+
+    # one B=4, T=4 request under the profiler: device time by kernel
+    sid = pred.open_session(B, HW, HW)
+    x = rng.gamma(2.0, 0.6, (B, T, HW, HW, 2)).astype(np.float32)
+    pred.predict(sid, x)
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        pred.predict(sid, x)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    pred.close_session(sid)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # device-side events only (kernels, copies); the host ops above them
+    # carry the same time again
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and dev_us(e) > 0
+                   and not e.key.startswith("Activity Buffer")),
+                  key=dev_us, reverse=True)
+    total_us = sum(dev_us(e) for e in rows)
+    groups = collections.Counter()
+    for e in rows:
+        name = e.key
+        group = ("conv3x3_fused (K2)" if "conv3x3_fused" in name
+                 else "gate_update (K1)" if "gate_update" in name
+                 else "library conv" if ("xmma" in name or "conv" in name
+                                         or "gemm" in name)
+                 else "memcpy" if name.startswith("Memcpy")
+                 else "other (casts, elementwise, cat, pool)")
+        groups[group] += dev_us(e) / 1e3
+    emit({"phase": "profile", "B": B, "T": T, "wall_ms": wall_ms,
+          "device_ms": total_us / 1e3,
+          "device_busy_share": total_us / 1e3 / wall_ms,
+          "by_group_ms": dict(groups.most_common()),
+          "top": [{"name": e.key[:90], "calls": e.count,
+                   "device_ms": dev_us(e) / 1e3} for e in rows[:16]]})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    smi = phase_device()
+    emit({"phase": "tolerances", "gate_update": K1_TOL,
+          "conv3x3_fused": K2_TOL, "conv3x3_fused_f32": K2_F32_TOL})
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    k1 = check_k1(gen)
+    k2 = check_k2(gen)
+    with tempfile.TemporaryDirectory() as workdir:
+        pred, counts = phase_serve(workdir)
+    phase_latency(pred)
+    per = f"one request: B={B}, T={T}, {HW}x{HW}, base_ch {BASE}, bf16"
+    kernels = [
+        {"name": "gate_update", "route": "cuda",
+         "source": "unet_convlstm_tpu_torch/csrc/gate_update.cu",
+         "replaces": "unet_convlstm_tpu/ops/pallas/convlstm_fused.py:44",
+         "launches": counts["gate_update"],
+         "launches_per_request": K1_PER_REQUEST,
+         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": "bytes", "library_ms": None, "per": per},
+        {"name": "conv3x3_fused", "route": "cuda",
+         "source": "unet_convlstm_tpu_torch/csrc/conv3x3_fused.cu",
+         "replaces": "unet_convlstm_tpu/ops/pallas/doubleconv_fused.py:100",
+         "launches": counts["conv3x3_fused"],
+         "launches_per_request": K2_PER_REQUEST,
+         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": ("operations" if k2["ops_ms"] >= k2["bytes_ms"]
+                      else "bytes"),
+         "library_ms": k2["library_ms"], "per": per},
+    ]
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

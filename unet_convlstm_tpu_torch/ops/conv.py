@@ -1,0 +1,194 @@
+"""Conv / pool / BatchNorm primitives, NHWC activations, torch-layout weights
+(counterpart of unet_convlstm_tpu/ops/conv.py).
+
+Activations are NHWC tensors as in the JAX package. Weights keep torch's
+layouts (Conv2d OIHW, ConvTranspose2d (in, out, kh, kw)), because the
+modules carry the reference's torch state dict. A convolution sees the
+NHWC tensor as an NCHW tensor in channels-last memory format, so cuDNN
+reads and writes channels-last and no layout copy is made.
+
+These stay on torch's own convolutions: the JAX package leaves them to XLA,
+outside any Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.dtypes import DEFAULT_POLICY, Policy
+
+Padding = Union[str, int, Sequence[Tuple[int, int]]]
+
+
+def _to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# Parameter holders (the reference's module names; init as torch's defaults)
+# ---------------------------------------------------------------------------
+
+def _uniform(shape, bound: float, generator: Optional[torch.Generator]):
+    t = torch.rand(shape, generator=generator, dtype=torch.float32)
+    return (t * 2.0 - 1.0) * bound
+
+
+class Conv2d(nn.Module):
+    """Holds ``weight`` [out, in, k, k] and ``bias`` [out]. Kaiming-uniform
+    (a = sqrt(5)) and fan-in-uniform bias, as torch's and the JAX package's
+    initializers, drawn from an explicit generator on the CPU."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        fan_in = in_ch * kernel_size * kernel_size
+        bound = 1.0 / math.sqrt(fan_in)   # gain sqrt(1/3) * sqrt(3/fan_in)
+        self.weight = nn.Parameter(_uniform(
+            (out_ch, in_ch, kernel_size, kernel_size), bound, generator))
+        self.bias = (nn.Parameter(_uniform((out_ch,), bound, generator))
+                     if bias else None)
+
+
+class ConvTranspose2d(nn.Module):
+    """Holds ``weight`` [in, out, k, k] and ``bias`` [out] (torch layout;
+    the JAX package stores the same kernel HWOI as ``wt``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(out_ch * kernel_size * kernel_size)
+        self.weight = nn.Parameter(_uniform(
+            (in_ch, out_ch, kernel_size, kernel_size), bound, generator))
+        self.bias = nn.Parameter(_uniform((out_ch,), bound, generator))
+
+
+# ---------------------------------------------------------------------------
+# Conv2d
+# ---------------------------------------------------------------------------
+
+def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, stride: int = 1,
+           padding: Padding = "SAME",
+           policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
+    """NHWC conv with an OIHW weight. ``padding``: "SAME", "VALID", an int,
+    or explicit [(lo, hi), (lo, hi)]. The output stays in the compute
+    dtype and the bias is added in that dtype after the conv, as in the
+    JAX package (not inside cuDNN's f32 epilogue)."""
+    w = policy.cast_param(weight)
+    x = policy.cast_input(x)
+    kh, kw = w.shape[2], w.shape[3]
+    if padding == "SAME":
+        pads = [_same_pads(x.shape[1], kh, stride),
+                _same_pads(x.shape[2], kw, stride)]
+    elif padding == "VALID":
+        pads = [(0, 0), (0, 0)]
+    elif isinstance(padding, int):
+        pads = [(padding, padding), (padding, padding)]
+    else:
+        pads = [tuple(p) for p in padding]
+    xt = _to_nchw(x)
+    (ph0, ph1), (pw0, pw1) = pads
+    if ph0 == ph1 and pw0 == pw1:
+        pad_arg = (ph0, pw0)
+    else:
+        xt = F.pad(xt, (pw0, pw1, ph0, ph1))
+        pad_arg = (0, 0)
+    with policy.precision():
+        y = _to_nhwc(F.conv2d(xt, w, None, stride, pad_arg))
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# ConvTranspose2d (kernel 2, stride 2: the UNet decoder upsampler)
+# ---------------------------------------------------------------------------
+
+def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None, stride: int = 2,
+                     policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
+    """NHWC transposed conv, weight [in, out, kh, kw]; for kernel = stride
+    = 2 it doubles H and W. Bias added in the compute dtype."""
+    w = policy.cast_param(weight)
+    x = policy.cast_input(x)
+    with policy.precision():
+        y = _to_nhwc(F.conv_transpose2d(_to_nchw(x), w, None, stride))
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# MaxPool2d
+# ---------------------------------------------------------------------------
+
+def max_pool2d(x: torch.Tensor, window: int = 2,
+               stride: Optional[int] = None) -> torch.Tensor:
+    stride = stride or window
+    return _to_nhwc(F.max_pool2d(_to_nchw(x), window, stride))
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm2d (torch semantics: momentum 0.1, eps 1e-5, biased batch var for
+# the normalization, unbiased var for the running estimate)
+# ---------------------------------------------------------------------------
+
+def batchnorm_from_sums(bn: nn.BatchNorm2d, total: Optional[torch.Tensor],
+                        total_sq: Optional[torch.Tensor], n: int,
+                        train: bool, momentum: float = 0.1,
+                        eps: float = 1e-5):
+    """BN affine (inv, shift) and the new running stats from per-channel
+    f32 sums, for when the reduction was fused elsewhere (the fused conv
+    kernel's epilogue). Returns (inv, shift, (mean, var)); in eval mode the
+    sums are not read and may be None."""
+    if train:
+        mean = total / n
+        mean_sq = total_sq / n
+        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
+        unbiased = var * (n / max(n - 1, 1))
+        new_stats = ((1 - momentum) * bn.running_mean + momentum * mean,
+                     (1 - momentum) * bn.running_var + momentum * unbiased)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+        new_stats = (mean, var)
+    inv = torch.rsqrt(var + eps) * bn.weight
+    shift = bn.bias - mean * inv
+    return inv, shift, new_stats
+
+
+def batchnorm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool,
+              momentum: float = 0.1, eps: float = 1e-5):
+    """x: NHWC. Returns (y, (mean, var)). Statistics in f32 (the square in
+    x's dtype, as ``lax.square`` in the JAX package); the normalization
+    runs in x's dtype."""
+    if train:
+        mean = x.float().mean(dim=(0, 1, 2))
+        mean_sq = (x * x).float().mean(dim=(0, 1, 2))
+        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        unbiased = var * (n / max(n - 1, 1))
+        new_stats = ((1 - momentum) * bn.running_mean + momentum * mean,
+                     (1 - momentum) * bn.running_var + momentum * unbiased)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+        new_stats = (mean, var)
+    inv = torch.rsqrt(var + eps) * bn.weight
+    shift = bn.bias - mean * inv
+    y = x * inv.to(x.dtype) + shift.to(x.dtype)
+    return y, new_stats
