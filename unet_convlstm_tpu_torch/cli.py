@@ -1,7 +1,9 @@
-"""Command line (counterpart of unet_convlstm_tpu/cli.py; ``serve`` only).
+"""Command line (counterpart of unet_convlstm_tpu/cli.py; ``serve`` and
+``bench`` so far).
 
     python -m unet_convlstm_tpu_torch serve --checkpoint model.pt \\
         --port 8000 --warmup 1x128x128
+    python -m unet_convlstm_tpu_torch bench [--plain]
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -9,6 +11,7 @@ Runs on the card unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import json
 from typing import List, Optional
 
 
@@ -25,6 +28,20 @@ def cmd_serve(args) -> None:
                device=args.device)
 
 
+def cmd_bench(args) -> None:
+    """Training frames/s of the JAX benchmark's configuration, one JSON
+    line (benchmark.py)."""
+    from .benchmark import run
+
+    print(json.dumps(run(args.device, kernels=not args.plain)), flush=True)
+
+
+def _device_arg(p) -> None:
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the card; 'cpu' to run "
+                        "without one)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="unet_convlstm_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -36,10 +53,15 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--port", type=int, default=8000)
     s.add_argument("--warmup", default="",
                    help="BxHxW geometry to run once before serving")
-    s.add_argument("--device", default=None,
-                   help="torch device (default: the card; 'cpu' to run "
-                        "without one)")
+    _device_arg(s)
     s.set_defaults(fn=cmd_serve)
+    b = sub.add_parser("bench", help="training frames/s (B=64, T=10, 64x64 "
+                                     "Moving-MNIST, base_ch 32), one JSON "
+                                     "line")
+    b.add_argument("--plain", action="store_true",
+                   help="both kernel flags off: the plain PyTorch path")
+    _device_arg(b)
+    b.set_defaults(fn=cmd_bench)
     return p
 
 

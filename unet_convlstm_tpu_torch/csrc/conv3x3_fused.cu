@@ -98,7 +98,9 @@ __device__ __forceinline__ uint4 load_z(const T* __restrict__ x,
       // no FMA contraction: the same roundings as the plain version
       const float a = __fadd_rn(__fmul_rn(to_f32(e[q]), __ldg(inv + ci + q)),
                                 __ldg(shift + ci + q));
-      e[q] = from_f32<T>(fmaxf(a, 0.0f));
+      // ReLU that keeps a NaN, as torch's clamp_min and XLA's max do
+      // (fmaxf would return 0 and hide a non-finite batch)
+      e[q] = from_f32<T>(a < 0.0f ? 0.0f : a);
     }
   }
   return v.u;

@@ -90,6 +90,29 @@ def temporal_unet_init_state(cfg: TemporalUNetConfig, batch: int,
     return state
 
 
+def double_convs(m: TemporalUNetDualView) -> Dict[str, DoubleConv]:
+    """The DoubleConv behind each key of the BatchNorm stats tree that
+    ``temporal_unet_apply`` returns."""
+    out = {"inc": m.inc}
+    for name in ("down1", "down2", "down3", "bottleneck"):
+        out[name] = getattr(m, name).net[1]
+    for name in ("up3", "up2", "up1", "up0"):
+        out[name] = getattr(m, name).conv
+    return out
+
+
+@torch.no_grad()
+def commit_bn_stats(m: TemporalUNetDualView, stats: Dict[str, Any]) -> None:
+    """Write a train-mode forward's new running (mean, var) into the
+    BatchNorm buffers (the JAX train step's ``state["stats"]`` update)."""
+    for name, dc in double_convs(m).items():
+        s = stats[name]
+        s = s.get("conv", s)       # an Up block nests its DoubleConv's
+        for bn, (mean, var) in ((dc.bn1, s["bn1"]), (dc.bn2, s["bn2"])):
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
+
+
 def _encode(m: TemporalUNetDualView, x_bt, train: bool, policy: Policy,
             fused: bool):
     """x_bt [T*B, H, W, Cin] → (bottleneck, skips, new BN stats)."""

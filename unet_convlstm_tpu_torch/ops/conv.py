@@ -149,6 +149,17 @@ def max_pool2d(x: torch.Tensor, window: int = 2,
 # the normalization, unbiased var for the running estimate)
 # ---------------------------------------------------------------------------
 
+def _running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
+                   var: torch.Tensor, n: int, momentum: float):
+    """The new running (mean, var) from a batch's biased statistics. They
+    are detached: the running statistics take no gradient (the JAX step
+    returns them as auxiliary outputs), and a graph kept in them would
+    keep every step's activations alive once they are committed."""
+    unbiased = var.detach() * (n / max(n - 1, 1))
+    return ((1 - momentum) * bn.running_mean + momentum * mean.detach(),
+            (1 - momentum) * bn.running_var + momentum * unbiased)
+
+
 def batchnorm_from_sums(bn: nn.BatchNorm2d, total: Optional[torch.Tensor],
                         total_sq: Optional[torch.Tensor], n: int,
                         train: bool, momentum: float = 0.1,
@@ -161,9 +172,7 @@ def batchnorm_from_sums(bn: nn.BatchNorm2d, total: Optional[torch.Tensor],
         mean = total / n
         mean_sq = total_sq / n
         var = torch.clamp_min(mean_sq - mean * mean, 0.0)
-        unbiased = var * (n / max(n - 1, 1))
-        new_stats = ((1 - momentum) * bn.running_mean + momentum * mean,
-                     (1 - momentum) * bn.running_var + momentum * unbiased)
+        new_stats = _running_stats(bn, mean, var, n, momentum)
     else:
         mean, var = bn.running_mean, bn.running_var
         new_stats = (mean, var)
@@ -182,9 +191,7 @@ def batchnorm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool,
         mean_sq = (x * x).float().mean(dim=(0, 1, 2))
         var = torch.clamp_min(mean_sq - mean * mean, 0.0)
         n = x.shape[0] * x.shape[1] * x.shape[2]
-        unbiased = var * (n / max(n - 1, 1))
-        new_stats = ((1 - momentum) * bn.running_mean + momentum * mean,
-                     (1 - momentum) * bn.running_var + momentum * unbiased)
+        new_stats = _running_stats(bn, mean, var, n, momentum)
     else:
         mean, var = bn.running_mean, bn.running_var
         new_stats = (mean, var)

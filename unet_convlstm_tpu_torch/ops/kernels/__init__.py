@@ -11,14 +11,17 @@ from typing import Dict
 
 from . import convlstm_fused, doubleconv_fused
 
-KERNEL_MODULES = {"gate_update": convlstm_fused,
-                  "conv3x3_fused": doubleconv_fused}
+# kernel name → (module, the integer that counts its launches)
+KERNEL_COUNTERS = {"gate_update": (convlstm_fused, "launches"),
+                   "gate_update_bwd": (convlstm_fused, "bwd_launches"),
+                   "conv3x3_fused": (doubleconv_fused, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: m.launches for name, m in KERNEL_MODULES.items()}
+    return {name: getattr(m, attr)
+            for name, (m, attr) in KERNEL_COUNTERS.items()}
 
 
 def reset_launches() -> None:
-    for m in KERNEL_MODULES.values():
-        m.launches = 0
+    for m, attr in KERNEL_COUNTERS.values():
+        setattr(m, attr, 0)

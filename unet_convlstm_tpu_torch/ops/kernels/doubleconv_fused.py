@@ -1,6 +1,7 @@
 """3x3 SAME conv with a BN-normalize+ReLU prologue and a per-channel
-sum/sumsq epilogue, forward: CUDA kernel and its plain PyTorch version
-(counterpart of unet_convlstm_tpu/ops/pallas/doubleconv_fused.py).
+sum/sumsq epilogue: CUDA kernel and its plain PyTorch version for the
+forward, torch's conv gradients for the backward (counterpart of
+unet_convlstm_tpu/ops/pallas/doubleconv_fused.py).
 
     z = relu(x * pre_inv + pre_shift)        (optional prologue, f32 math)
     y = conv3x3_same(z, w) + b               (f32 accumulation, stored in x's dtype)
@@ -11,12 +12,19 @@ The halo of the SAME padding is zero in z, not in x. The kernel
 while it stages x and reduces the stats in its epilogue, so a DoubleConv's
 second conv reads the first one's raw output once and nothing else.
 
-``fused_conv3x3`` takes the plain version for tensors on the CPU. For
-tensors on the card it launches the kernel or raises; it never falls back.
+``fused_conv3x3`` runs one autograd node on every device: its forward is
+the plain version on the CPU and the kernel on the card, which it launches
+or raises; it never falls back. Its backward is the JAX ``_bwd`` step by
+step: the stats cotangents fold into dy, the prologue is recomputed, and
+the conv's input and weight gradients come from torch's
+``convolution_backward`` (the JAX package leaves them to XLA's conv
+transposes, outside any Pallas kernel). It saves (x, y, w, inv, shift),
+the JAX residuals.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional, Tuple
 
@@ -123,18 +131,66 @@ def _launch(x, w, b, pre_inv, pre_shift):
     return y, s, q
 
 
+def fused_conv3x3_bwd(x, y, w, pre_inv, pre_shift, gy, gs, gq):
+    """The JAX ``_bwd`` (ops/pallas/doubleconv_fused.py:222-274): cotangents
+    (gy, gs, gq) of (y, sum, sumsq), any of them None for zero, → (dx, dw,
+    db, dinv, dshift); dinv and dshift are None without a prologue. dx and
+    dw come back in x's dtype, the rest in f32."""
+    f32, cdt = torch.float32, x.dtype
+    # d(sum)/dy = 1 and d(sumsq)/dy = 2y per channel, with the saved,
+    # rounded y
+    dy = gy.float() if gy is not None else torch.zeros(y.shape, dtype=f32,
+                                                       device=y.device)
+    if gs is not None:
+        dy = dy + gs.float()
+    if gq is not None:
+        dy = dy + 2.0 * y.float() * gq.float()
+    dy = dy.to(cdt)
+    db = dy.float().sum(dim=(0, 1, 2))
+    if pre_inv is not None:
+        a = x.float() * pre_inv.float() + pre_shift.float()
+        z = torch.clamp_min(a, 0.0).to(cdt)
+    else:
+        z = x
+    # NCHW views of NHWC tensors: channels-last to cuDNN, no copy
+    with full_fp32() if cdt == f32 else contextlib.nullcontext():
+        dz, dw, _ = torch.ops.aten.convolution_backward(
+            dy.permute(0, 3, 1, 2), z.permute(0, 3, 1, 2), w.to(cdt), None,
+            [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, True, False])
+    dz = dz.permute(0, 2, 3, 1)
+    if pre_inv is None:
+        return dz.to(cdt), dw, db, None, None
+    da = torch.where(a > 0.0, dz.float(), 0.0)
+    return ((da * pre_inv.float()).to(cdt), dw, db,
+            (da * x.float()).sum(dim=(0, 1, 2)), da.sum(dim=(0, 1, 2)))
+
+
 class _FusedConv3x3(torch.autograd.Function):
-    """The kernel as an autograd node. Its backward (torch's conv grads, as
-    the JAX backward uses XLA's) comes with the training slice."""
+    """The fused conv as an autograd node with the JAX VJP's residuals.
+    Unused outputs (the sums in eval mode) get None gradients, which the
+    backward skips rather than folding in zeros."""
 
     @staticmethod
     def forward(ctx, x, w, b, pre_inv, pre_shift):
-        return _launch(x, w, b, pre_inv, pre_shift)
+        ctx.set_materialize_grads(False)
+        if x.device.type == "cpu":
+            out = fused_conv3x3_plain(x, w, b, pre_inv, pre_shift)
+        else:
+            out = _launch(x, w, b, pre_inv, pre_shift)
+        ctx.save_for_backward(x, out[0], w, pre_inv, pre_shift)
+        return out
 
     @staticmethod
     def backward(ctx, gy, gs, gq):
-        raise NotImplementedError("training slice: the fused conv3x3 "
-                                  "backward is not ported yet")
+        x, y, w, pre_inv, pre_shift = ctx.saved_tensors
+        if gy is None and gs is None and gq is None:
+            return None, None, None, None, None
+        dx, dw, db, dinv, dshift = fused_conv3x3_bwd(
+            x, y, w, pre_inv, pre_shift, gy, gs, gq)
+        grads = (dx, dw.to(w.dtype), db, dinv, dshift)
+        # None where the input was None or takes no gradient
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def fused_conv3x3(x: torch.Tensor, w: torch.Tensor,
@@ -147,9 +203,8 @@ def fused_conv3x3(x: torch.Tensor, w: torch.Tensor,
     in x's dtype, sum [Cout] f32, sumsq [Cout] f32). The sums are always
     computed; eval-mode callers ignore them.
 
-    On the CPU: the plain version. On the card: the CUDA kernel."""
+    On the CPU: the plain version. On the card: the CUDA kernel. Both
+    differentiate through the JAX package's backward."""
     if (pre_inv is None) != (pre_shift is None):
         raise ValueError("pass both pre_inv and pre_shift, or neither")
-    if x.device.type == "cpu":
-        return fused_conv3x3_plain(x, w, b, pre_inv, pre_shift)
     return _FusedConv3x3.apply(x, w, b, pre_inv, pre_shift)

@@ -1,6 +1,7 @@
 """Dataset normalization (counterpart of unet_convlstm_tpu/ops/normalize.py).
 
 * X: divided by the global max of X, floored at 1.0.
+* Mask: ``raw_x[channel 0] > mask_threshold``, from the raw frames.
 * Y: optionally clipped to [min_vel, max_vel], transformed by
   ``asinh(y/scale)`` or ``sign(y)*log1p(|y|/scale)``, then mapped affinely
   to [-1, 1] with the transformed min/max; ``denormalize_y`` inverts it.
@@ -95,8 +96,30 @@ def compute_norm_stats(X: np.ndarray, Y: np.ndarray,
                      mask_threshold=mask_threshold)
 
 
+def compute_mask(x_raw: torch.Tensor, stats: NormStats) -> torch.Tensor:
+    """Mask from the RAW x, channel 0, kept as a singleton channel:
+    x_raw [..., H, W, C] → [..., H, W, 1] f32."""
+    return (x_raw[..., 0:1] > stats.mask_threshold).float()
+
+
 def normalize_x(x_raw: torch.Tensor, stats: NormStats) -> torch.Tensor:
     return x_raw / stats.norm_const
+
+
+def normalize_y(y_raw: torch.Tensor, stats: NormStats) -> torch.Tensor:
+    """Clip (if ``clip_outliers``), transform, then map affinely to
+    [-1, 1]; f32."""
+    y = y_raw
+    if stats.clip_outliers:
+        y = torch.clamp(y, stats.min_vel, stats.max_vel)
+    if stats.y_transform == "asinh":
+        y_t = torch.asinh(y / stats.y_scale)
+    elif stats.y_transform == "signed_log":
+        y_t = torch.sign(y) * torch.log1p(torch.abs(y) / stats.y_scale)
+    else:
+        y_t = y
+    return (2.0 * (y_t - stats.trans_min)
+            / (stats.trans_max - stats.trans_min) - 1.0).float()
 
 
 def denormalize_y(y_norm: torch.Tensor, stats: NormStats) -> torch.Tensor:
