@@ -27,6 +27,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
               against the plain path (f32 and bf16), a NaN batch under the
               non-finite skip, step times over 20 steps per path, peak
               memory, and where one step's device time goes.
+6. mc       — stage B's Monte-Carlo path tracer at the production geometry
+              (two 128x128x200 patches, a 256x256 view from 600 km, spp 16,
+              max_depth 64): the fused-sampler route (K4, one launch per
+              lockstep iteration) at majorant cells 0 and 16 and the threefry
+              route at each patch's auto cell, with launch counts, wall
+              times, iterations and image means; fused against threefry
+              within 4 standard errors; the threefry route on the card
+              against the same code on the CPU; one profiled view.
+7. renders  — ``gen-renders`` of the port's CLI on two such patches and a
+              2-view overpass CSV: deterministic, MC at spp 16, batched;
+              pkl schema, batched = serial, a re-run byte-equal.
+
+Phase 2 also holds the fused MC sampling kernels (K4 with its Philox
+uniforms, K5 with given uniforms) against their plain versions at one view
+(65,536 lanes) and at the MC main path's launch (16 rounds of a view).
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, {"kernels": [...]}, and {"ok": true, "device": {"platform":
@@ -44,6 +59,7 @@ import http.client
 import json
 import math
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -55,14 +71,19 @@ import torch
 import torch.nn.functional as F
 
 from unet_convlstm_tpu_torch import benchmark
+from unet_convlstm_tpu_torch.cli import main as cli_main
 from unet_convlstm_tpu_torch.core.dtypes import (DEFAULT_POLICY, FP32_POLICY,
                                                  full_fp32)
+from unet_convlstm_tpu_torch.datagen import mc_reference
+from unet_convlstm_tpu_torch.datagen.overpass import synthesize_overpass_csv
+from unet_convlstm_tpu_torch.datagen.renderer import (VolumeScene,
+                                                      sun_transmittance)
 from unet_convlstm_tpu_torch.models.registry import build_model
 from unet_convlstm_tpu_torch.models.temporal_unet import (double_convs,
                                                           temporal_unet_apply)
 from unet_convlstm_tpu_torch.ops.kernels import (build, convlstm_fused,
                                                  doubleconv_fused,
-                                                 launch_counts,
+                                                 launch_counts, mc_sampler,
                                                  reset_launches)
 from unet_convlstm_tpu_torch.ops.losses import compute_loss
 from unet_convlstm_tpu_torch.ops.normalize import (compute_mask,
@@ -85,6 +106,16 @@ HBM_BYTES_PER_S = 3.35e12                # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12                  # dense tensor-core bf16, same
 L2_BYTES = 50 * 2 ** 20
 DEV = torch.device("cuda")
+# stage B at the production geometry (scripts/perf/bench_mc.py:13-31)
+MC_NZ, MC_NXY, MC_RES, MC_SPP, MC_DEPTH = 200, 128, 256, 16, 64
+MC_LANES = MC_RES * MC_RES
+MC_CAMERA = dict(origin=(0, 0, 600_000.0), target=(0, 0, 1500.0),
+                 up=(1.0, 0.0, 0.0), fov_deg=0.25,
+                 resolution=(MC_RES, MC_RES), sun_dir=(0.3, 0.2, -0.9),
+                 g=0.85)
+MC_CELLS = (0, 16)
+MC_SE_LIMIT = 4          # fused vs threefry means, in standard errors
+NO_LAUNCHES = {"mc_sample_flights": 0, "mc_sample_flights_uniforms": 0}
 
 
 def k1_levels(base, hw, t):
@@ -133,6 +164,13 @@ K2_TOL = ("y: 2^-7 * |y| + 1e-3 * max|y| (the f32 sums run in another order, "
           "so a bf16 rounding may flip by one ulp); sum, sumsq: 1e-3 of the "
           "sum of |y| resp. of sumsq (f32 atomics in no fixed order)")
 K2_F32_TOL = "y: 1e-4 * max|y| (f32 FMA in another order)"
+MC_K_TOL = ("u_acc bit-equal; t 1e-6 relative (log1p, a few ulps); new_d "
+            "within 1e-5 per component in all but 0.01% of lanes and 1e-3 "
+            "in all (an ulp of cos theta near +-1 moves sin theta by up to "
+            "3.5e-4), unit norm 1e-5")
+MC_CROSS_TOL = ("threefry route, card against CPU: image mean 1e-4 relative, "
+                "at most 1% of pixels beyond 1e-4 relative (a last-ulp "
+                "difference of log/cos may send a lane to another voxel)")
 STREAM_TOL = 1e-2   # RMS error over RMS |y|: cuDNN's bf16 convs may pick
 #                     other algorithms for another batch size, which rounds
 #                     otherwise (a bf16 ulp is 2^-8); a lost or misrouted
@@ -428,6 +466,90 @@ def check_k2(gen, convs, n, per, serving: bool):
     return total
 
 
+def _mc_k_inputs(gen, groups: int):
+    """Directions, majorants (a tenth of them 0: empty super-voxels),
+    uniforms and per-group seeds for ``groups`` x 65,536 lanes."""
+    n = groups * MC_LANES
+    d = torch.randn(n, 3, device=DEV, generator=gen)
+    d = d / d.norm(dim=1, keepdim=True)
+    m = torch.rand(n, device=DEV, generator=gen) * 0.2
+    m = torch.where(torch.rand(n, device=DEV, generator=gen) < 0.1, 0.0, m)
+    u = torch.rand(4, n, device=DEV, generator=gen)
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (groups,), device=DEV,
+                          generator=gen, dtype=torch.int64).to(torch.int32)
+    return d, m, u, seeds
+
+
+def _mc_k_errors(kernel, plain):
+    """(ok, max abs err, the errors) of a kernel's (t, u_acc, new_d)
+    against its plain version's, with MC_K_TOL."""
+    (t, ua, nd), (tp, uap, ndp) = kernel, plain
+    torch.cuda.synchronize()
+    t_rel = float(((t - tp).abs() / tp.abs().clamp_min(1e-30)).max())
+    dd = (nd - ndp).abs()
+    big = float((dd > 1e-5).any(dim=1).float().mean())
+    norm = float((nd.norm(dim=1) - 1).abs().max())
+    ok = (torch.equal(ua, uap) and t_rel <= 1e-6 and big <= 1e-4
+          and float(dd.max()) <= 1e-3 and norm <= 1e-5)
+    err = max(float((t - tp).abs().max()), float(dd.max()))
+    return ok, err, {"t_rel": t_rel, "new_d_abs": float(dd.max()),
+                     "new_d_lanes_beyond_1e-5": big, "norm": norm}
+
+
+def check_mc_kernels(gen):
+    """K4 and K5 against their plain versions, g 0.85 and 0.0, at one view
+    (65,536 lanes) and at the MC main path's launch (16 rounds of a view),
+    timed at g 0.85 with inputs rotated past L2. K4's plain version draws
+    the same Philox words, so the two are compared value for value."""
+    out = {}
+    for g in (0.85, 0.0):
+        for groups in (1, MC_SPP):
+            args = _mc_k_inputs(gen, groups)
+            d, m, u, seeds = args
+            ok5, err5, e5 = _mc_k_errors(
+                mc_sampler.mc_sample_flights_with_uniforms(u, d, m, g),
+                mc_sampler.sample_flights_with_uniforms_plain(u, d, m, g))
+            ok4, err4, e4 = _mc_k_errors(
+                mc_sampler.mc_sample_flights(seeds, 7, d, m, g),
+                mc_sampler.sample_flights_plain(seeds, 7, d, m, g))
+            n = groups * MC_LANES
+            line = {"phase": "kernel", "kernel": "mc_sample_flights (K4), "
+                    "mc_sample_flights_uniforms (K5)", "g": g, "lanes": n,
+                    "groups": groups, "k4": e4, "k5": e5, "ok": ok4 and ok5}
+            if g == 0.85:
+                sets = copies(lambda: _mc_k_inputs(gen, groups), 52 * n)
+
+                def k4(d, m, u, seeds, fn=mc_sampler.mc_sample_flights):
+                    return fn(seeds, 7, d, m, g)
+
+                def k5(d, m, u, seeds,
+                       fn=mc_sampler.mc_sample_flights_with_uniforms):
+                    return fn(u, d, m, g)
+
+                for name, fn, fp, nbytes, err in (
+                        ("mc_sample_flights", k4, functools.partial(
+                            k4, fn=mc_sampler.sample_flights_plain),
+                         36 * n, err4),
+                        ("mc_sample_flights_uniforms", k5, functools.partial(
+                            k5,
+                            fn=mc_sampler.sample_flights_with_uniforms_plain),
+                         52 * n, err5)):
+                    t = {"ms": device_ms(fn, sets),
+                         "plain_ms": device_ms(fp, sets),
+                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                         "max_abs_err": err}
+                    line[name] = t
+                    out[name, groups] = t
+            emit(line)
+            if not line["ok"]:
+                raise AssertionError(f"mc sampler kernels disagree: {line}")
+            for name, err in (("mc_sample_flights", err4),
+                              ("mc_sample_flights_uniforms", err5)):
+                t = out[name, groups]
+                t["max_abs_err"] = max(t["max_abs_err"], err)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # 3. serving
 # ---------------------------------------------------------------------------
@@ -498,7 +620,7 @@ def phase_serve(workdir: str):
     requests = SESSIONS * REQUESTS_PER_SESSION
     expect = {"gate_update": K1_PER_REQUEST * requests,
               "gate_update_bwd": 0,
-              "conv3x3_fused": K2_PER_REQUEST * requests}
+              "conv3x3_fused": K2_PER_REQUEST * requests, **NO_LAUNCHES}
     finite = all(np.isfinite(y).all() for y in outs)
     shapes_ok = all(y.shape == (B, T, HW, HW, cfg.out_channels) for y in outs)
     emit({"phase": "serve_main_path", "requests": requests, "B": B, "T": T,
@@ -633,7 +755,8 @@ def device_breakdown(prof, wall_ms):
     groups = collections.Counter()
     for e in rows:
         name = e.key
-        group = ("conv3x3_fused (K2)" if "conv3x3_fused" in name
+        group = ("mc_sample_flights (K4)" if "mc_sample_flights" in name
+                 else "conv3x3_fused (K2)" if "conv3x3_fused" in name
                  else "gate_update_bwd (K1 backward)"
                  if "gate_update_bwd" in name
                  else "gate_update (K1)" if "gate_update" in name
@@ -755,7 +878,7 @@ def phase_train(tr: _Train):
     counts = launch_counts()
     expect = {"gate_update": K1_PER_STEP * TRAIN_STEPS,
               "gate_update_bwd": K1_PER_STEP * TRAIN_STEPS,
-              "conv3x3_fused": K2_PER_STEP * TRAIN_STEPS}
+              "conv3x3_fused": K2_PER_STEP * TRAIN_STEPS, **NO_LAUNCHES}
     finite = all(math.isfinite(v) for v in losses)
     emit({"phase": "train_main_path", "steps": TRAIN_STEPS, "B": TB,
           "T": TT, "H": THW, "W": THW, "base_ch": TBASE, "dtype": "bfloat16",
@@ -888,6 +1011,216 @@ def phase_train(tr: _Train):
     return counts, runs
 
 
+# ---------------------------------------------------------------------------
+# 6. stage B: the Monte-Carlo path tracer, and gen-renders
+# ---------------------------------------------------------------------------
+
+def mc_patches():
+    """The two production patches of scripts/perf/bench_mc.py:13-23:
+    "broad" (β_max 0.01, where the majorant grid loses) and "dense" (β_max
+    0.15, where it wins), [Z, Y, X] f32."""
+    z, y, x = np.meshgrid(np.arange(MC_NZ), np.arange(MC_NXY),
+                          np.arange(MC_NXY), indexing="ij")
+    return {
+        "broad": (0.01 * np.exp(-(((z - 60) / 30.0) ** 2
+                                  + ((y - 64) / 40.0) ** 2
+                                  + ((x - 64) / 40.0) ** 2))
+                  ).astype(np.float32),
+        "dense": (0.15 * np.exp(-(((z - 60) / 12.0) ** 2
+                                  + ((y - 64) / 12.0) ** 2
+                                  + ((x - 64) / 12.0) ** 2))
+                  ).astype(np.float32)}
+
+
+def _mc_view(scene, t_sun, cell, fused, spp=MC_SPP, seed=0, **over):
+    """One MC view through ``mc_radiance``, launch counts read around it:
+    (image, wall s, stats, counts)."""
+    kw = dict(MC_CAMERA, **over)
+    stats = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    img = mc_reference.mc_radiance(
+        scene, kw.pop("origin"), kw.pop("target"), kw.pop("up"), **kw,
+        spp=spp, max_depth=MC_DEPTH, t_sun=t_sun, seed=seed,
+        majorant_cell=cell, use_fused_sampler=fused, stats=stats)
+    torch.cuda.synchronize()
+    return img, time.perf_counter() - t0, stats, launch_counts()
+
+
+def phase_mc():
+    """Every (patch, route, cell) view of the production geometry, the
+    card against the CPU, one profiled view. Returns the K4 launches of
+    the fused views and their iterations."""
+    patches = mc_patches()
+    sun = np.asarray(MC_CAMERA["sun_dir"], np.float32)
+    sun = sun / np.linalg.norm(sun)
+    views, k4_launches, k4_iters, ok = [], 0, 0, True
+    for name, beta in patches.items():
+        scene = VolumeScene(torch.from_numpy(beta).to(DEV), 20.0)
+        t0 = time.perf_counter()
+        t_sun = sun_transmittance(scene, sun)
+        torch.cuda.synchronize()
+        t_sun_s = time.perf_counter() - t0
+        auto = mc_reference.auto_majorant_cell(float(beta.max()),
+                                               scene.diagonal)
+        routes = [(c, True) for c in MC_CELLS] + [(auto, False)]
+        res = {}
+        for cell, fused in routes:
+            _mc_view(scene, t_sun, cell, fused, spp=1)        # warm-up
+            img, wall, stats, counts = _mc_view(scene, t_sun, cell, fused)
+            rm = np.asarray(stats["round_means"])[:, 0]
+            expect = dict({k: 0 for k in counts}, mc_sample_flights=(
+                stats["iterations"] if fused else 0))
+            finite = bool(torch.isfinite(img).all())
+            nonneg = bool((img >= 0).all())
+            line = {"phase": "mc_view", "patch": name, "beta_max":
+                    float(beta.max()), "route": "fused" if fused
+                    else "threefry", "majorant_cell": cell,
+                    "auto_cell": auto, "spp": MC_SPP, "wall_s": wall,
+                    "iterations": stats["iterations"],
+                    "max_events": mc_reference.default_max_events(
+                        float(beta.max()), scene.diagonal, 20.0, cell),
+                    "launches": counts, "mean": float(img.mean()),
+                    "se": float(rm.std(ddof=1) / np.sqrt(len(rm))),
+                    "finite": finite, "nonnegative": nonneg,
+                    "t_sun_s": t_sun_s}
+            line["ok"] = counts == expect and finite and nonneg
+            emit(line)
+            views.append(line)
+            ok = ok and line["ok"]
+            res[cell, fused] = line
+            if fused:
+                k4_launches += counts["mc_sample_flights"]
+                k4_iters += stats["iterations"]
+        ref = res[auto, False]
+        for cell in MC_CELLS:
+            f = res[cell, True]
+            z = abs(f["mean"] - ref["mean"]) / max(
+                math.hypot(f["se"], ref["se"]), 1e-30)
+            good = z <= MC_SE_LIMIT
+            emit({"phase": "mc_fused_vs_threefry", "patch": name,
+                  "fused_cell": cell, "threefry_cell": auto,
+                  "fused_mean": f["mean"], "threefry_mean": ref["mean"],
+                  "z": z, "limit": MC_SE_LIMIT, "ok": good})
+            ok = ok and good
+    if not ok:
+        raise AssertionError("MC views: wrong launch counts, bad images or "
+                             "fused and threefry apart")
+
+    # the threefry route on the card against the same code on the CPU: the
+    # broad patch at 64x64 seen from 20 km (at 600 km an ulp of a ray moves
+    # its entry point by 0.04 m, and the devices' norms differ in an ulp)
+    near = dict(origin=(0, 0, 20_000.0), resolution=(64, 64), fov_deg=8.0)
+    beta = patches["broad"]
+    imgs = []
+    for dev in (DEV, "cpu"):
+        scene = VolumeScene(torch.from_numpy(beta).to(dev), 20.0)
+        t_sun = sun_transmittance(scene, sun)
+        kw = dict(MC_CAMERA, **near)
+        imgs.append(mc_reference.mc_radiance(
+            scene, kw.pop("origin"), kw.pop("target"), kw.pop("up"), **kw,
+            spp=4, max_depth=MC_DEPTH, t_sun=t_sun, seed=1,
+            majorant_cell=0).cpu().numpy())
+    a, b = imgs
+    mean_rel = float(abs(a.mean() / b.mean() - 1))
+    off = float((np.abs(a - b) > 1e-4 * np.abs(b)).mean())
+    good = bool(np.isfinite(a).all()) and mean_rel <= 1e-4 and off <= 0.01
+    emit({"phase": "mc_card_vs_cpu", "patch": "broad", "res": 64,
+          "spp": 4, "mean_rel": mean_rel, "pixels_off_share": off,
+          "pixels_off": int(round(off * a.size)), "tol": MC_CROSS_TOL,
+          "ok": good})
+    if not good:
+        raise AssertionError("MC: the card and the CPU disagree")
+
+    # one profiled fused view: the dense patch at its auto cell
+    scene = VolumeScene(torch.from_numpy(patches["dense"]).to(DEV), 20.0)
+    t_sun = sun_transmittance(scene, sun)
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        _, wall, stats, _ = _mc_view(scene, t_sun, 16, True)
+    emit({"phase": "mc_profile", "patch": "dense", "route": "fused",
+          "majorant_cell": 16, "iterations": stats["iterations"],
+          **device_breakdown(prof, wall * 1e3)})
+    return k4_launches, k4_iters, views
+
+
+def _pkls(root):
+    out = {}
+    for folder in sorted(os.listdir(root)):
+        for name in sorted(os.listdir(os.path.join(root, folder))):
+            path = os.path.join(root, folder, name)
+            with open(path, "rb") as f:
+                raw = f.read()
+            out[f"{folder}/{name}"] = (raw, pickle.loads(raw))
+    return out
+
+
+def phase_renders(workdir: str):
+    """``gen-renders`` through the port's CLI on the two production
+    patches and a 2-view overpass CSV. Folders take the CSV's times in
+    turn (render_all.py:89-92): the patches sit in the 7th folder, which
+    gets the 7th time, when the synthetic pass is near nadir (sat zenith
+    ~15 deg), so that both views see the clouds; folders 1-6 are empty."""
+    root = os.path.join(workdir, "patches")
+    for k in range(1, 7):
+        os.makedirs(os.path.join(root, f"{k:010d}"))
+    src = os.path.join(root, f"{7:010d}")
+    os.makedirs(src)
+    for i, beta in enumerate(mc_patches().values()):
+        with open(os.path.join(src, f"sample_{i:03d}.pkl"), "wb") as f:
+            pickle.dump({"beta_ext": beta}, f)
+    csv = synthesize_overpass_csv(os.path.join(workdir, "overpass.csv"),
+                                  n_times=7, n_satellites=2)
+    base = ["gen-renders", "--input", root, "--csv", csv, "--res",
+            str(MC_RES)]
+    mc = ["--mc-spp", str(MC_SPP), "--mc-majorant-cell", "16"]
+    runs = {"deterministic": [], "mc": mc, "mc_batch": mc + ["--batch", "2"],
+            "mc_rerun": mc}
+    out, walls, counts = {}, {}, {}
+    for tag, extra in runs.items():
+        dst = os.path.join(workdir, tag)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            cli_main(base + ["--output", dst] + extra)
+        walls[tag] = time.perf_counter() - t0
+        counts[tag] = launch_counts()
+        out[tag] = _pkls(dst)
+    names = sorted(out["mc"])
+    schema = all(
+        len(o) == 4 and sorted(o) == names
+        and all(set(d) == {"render", "timestamp", "satellite_idx"}
+                and d["render"].shape == (MC_RES, MC_RES)
+                and d["render"].dtype == np.float32
+                and np.isfinite(d["render"]).all()
+                and (d["render"] >= 0).all() for _, d in o.values())
+        for o in out.values())
+    batch_err = max(float(np.abs(out["mc_batch"][k][1]["render"]
+                                 - out["mc"][k][1]["render"]).max()
+                          / max(np.abs(out["mc"][k][1]["render"]).max(),
+                                1e-30)) for k in names)
+    batch_ok = all(np.allclose(out["mc_batch"][k][1]["render"],
+                               out["mc"][k][1]["render"], rtol=1e-6,
+                               atol=1e-8) for k in names)
+    rerun_equal = all(out["mc_rerun"][k][0] == out["mc"][k][0]
+                      for k in names)
+    lit = all(d["render"].max() > 0 for o in out.values()
+              for _, d in o.values())
+    ok = schema and lit and batch_ok and rerun_equal and all(
+        sum(c.values()) == 0 for c in counts.values())
+    emit({"phase": "gen_renders", "pkls": names, "wall_s": walls,
+          "launches": counts, "schema_ok": schema, "all_lit": lit,
+          "batched_vs_serial_rel": batch_err, "batched_equal": batch_ok,
+          "rerun_byte_equal": rerun_equal,
+          "means": {k: float(v[1]["render"].mean())
+                    for k, v in out["mc"].items()}, "ok": ok})
+    if not ok:
+        raise AssertionError("gen-renders checks failed")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -902,19 +1235,30 @@ def main() -> int:
                         "5e-2 RMS in units of lr; BN running stats 1e-4 of "
                         "max(1, max|stat|) (each step from the same state)"),
           "train_bf16": "first forward and gradients: the kernel path no "
-                        "further from f32 than 1.25x the plain path"})
+                        "further from f32 than 1.25x the plain path",
+          "mc_sample_flights": MC_K_TOL, "mc_card_vs_cpu": MC_CROSS_TOL,
+          "mc_fused_vs_threefry": f"image means within {MC_SE_LIMIT} "
+                                  "standard errors (from the per-round "
+                                  "means)",
+          "gen_renders": "batched = serial within 1e-6 relative; a re-run "
+                         "byte-equal"})
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     k1 = check_k1(gen, K1_LEVELS, B, "request")
     k2 = check_k2(gen, K2_CONVS, B * T, "request", serving=True)
     k1_bwd = check_k1_bwd(gen)
     k1_train = check_k1(gen, K1_TRAIN_LEVELS, TB, "step")
     k2_train = check_k2(gen, K2_TRAIN_CONVS, TB * TT, "step", serving=False)
+    mc_k = check_mc_kernels(gen)
     with tempfile.TemporaryDirectory() as workdir:
         pred, counts = phase_serve(workdir)
     phase_latency(pred)
     del pred
     torch.cuda.empty_cache()
     train_counts, _ = phase_train(_Train())
+    torch.cuda.empty_cache()
+    k4_launches, k4_iters, _ = phase_mc()
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_renders(workdir)
 
     per = f"one request: B={B}, T={T}, {HW}x{HW}, base_ch {BASE}, bf16"
     per_step = (f"one training step: B={TB}, T={TT}, {THW}x{THW}, base_ch "
@@ -958,6 +1302,29 @@ def main() -> int:
          "plain_ms": k1_bwd["plain_ms"], "bound_ms": k1_bwd["bound_ms"],
          "bound_by": "bytes", "library_ms": None, "per": per_step},
     ]
+    mc_per = (f"one launch of the MC main path: {MC_SPP} rounds x "
+              f"{MC_LANES} lanes (a {MC_RES}x{MC_RES} view at spp {MC_SPP}),"
+              " g 0.85")
+    for name, replaces, launches in (
+            ("mc_sample_flights", "mc_sampler.py:86", k4_launches),
+            ("mc_sample_flights_uniforms", "mc_sampler.py:105", 0)):
+        t, view = mc_k[name, MC_SPP], mc_k[name, 1]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "unet_convlstm_tpu_torch/csrc/mc_sampler.cu",
+            "replaces": f"unet_convlstm_tpu/ops/pallas/{replaces}",
+            "launches": launches, "max_abs_err": max(t["max_abs_err"],
+                                                     view["max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "per": mc_per,
+            "view_lanes": {"lanes": MC_LANES, "ms": view["ms"],
+                           "plain_ms": view["plain_ms"],
+                           "bound_ms": view["bound_ms"]}})
+    kernels[-2]["lockstep_iterations"] = k4_iters
+    kernels[-1]["note"] = ("the exact-parity entry point (uniforms given), "
+                           "which holds K4's math; the render path draws "
+                           "its uniforms in K4 and does not launch it")
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -67,8 +67,8 @@ def test_gate_update_autograd_matches_jax_grad(dtype, use_c):
     gates, c, _, _ = _gate_inputs()
     reset_launches()
     dg_t, dc_t = _torch_grads(gates, c, dtype, use_c)
-    assert launch_counts() == {"gate_update": 0, "gate_update_bwd": 0,
-                               "conv3x3_fused": 0}   # the CPU: plain path
+    # the CPU: plain path, no kernel launched
+    assert not any(launch_counts().values()), launch_counts()
     dg_j, dc_j = _jax_grads(gates, c, dtype, use_c)
     assert dg_t.dtype == getattr(torch, dtype) and dc_t.dtype == torch.float32
     tol = TOL[dtype]

@@ -159,8 +159,7 @@ def test_losses_and_metric_sums_match_each_step(runs):
         assert_sums_close(*step["sums"])
     # the loss moves: the steps did update the model
     assert runs["out"][0]["loss"][0] != runs["out"][-1]["loss"][0]
-    assert runs["counts"] == {"gate_update": 0, "gate_update_bwd": 0,
-                              "conv3x3_fused": 0}   # no launch on the CPU
+    assert not any(runs["counts"].values()), runs["counts"]  # CPU: none
 
 
 def test_params_and_bn_stats_after_each_step(runs):

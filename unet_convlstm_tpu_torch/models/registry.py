@@ -47,7 +47,7 @@ def _build_custom(cfg_dict: Dict[str, Any]):
 def _build_resnet18(cfg_dict: Dict[str, Any]):
     raise NotImplementedError(
         "model type 'resnet18' is not ported to unet_convlstm_tpu_torch yet "
-        "(ROADMAP.md, queue B: ResNet18-UNet family)")
+        "(ROADMAP.md, queue A item 4: ResNet18 family)")
 
 
 MODEL_REGISTRY: Dict[str, Callable] = {

@@ -9,12 +9,15 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import convlstm_fused, doubleconv_fused
+from . import convlstm_fused, doubleconv_fused, mc_sampler
 
 # kernel name → (module, the integer that counts its launches)
 KERNEL_COUNTERS = {"gate_update": (convlstm_fused, "launches"),
                    "gate_update_bwd": (convlstm_fused, "bwd_launches"),
-                   "conv3x3_fused": (doubleconv_fused, "launches")}
+                   "conv3x3_fused": (doubleconv_fused, "launches"),
+                   "mc_sample_flights": (mc_sampler, "launches"),
+                   "mc_sample_flights_uniforms": (mc_sampler,
+                                                  "uniforms_launches")}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -42,7 +42,7 @@ from .ops.normalize import NormStats, denormalize_y, normalize_x
 from .train.checkpoint import restore_checkpoint
 
 INT8_TODO = ("int8 serving is not ported to unet_convlstm_tpu_torch yet "
-             "(ROADMAP.md, queue B: int8 inference)")
+             "(ROADMAP.md, queue A item 6: int8)")
 
 
 @dataclass

@@ -38,7 +38,7 @@ from .optim import Optimizer, all_finite
 
 _MULTI_DEVICE = ("multi-device training is not ported to "
                  "unet_convlstm_tpu_torch yet (ROADMAP.md, queue A, "
-                 "item 6: multi-device)")
+                 "item 7: multi-device)")
 
 
 def _update_was_finite(opt: Optimizer) -> bool:
