@@ -38,10 +38,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
 7. renders  — ``gen-renders`` of the port's CLI on two such patches and a
               2-view overpass CSV: deterministic, MC at spp 16, batched;
               pkl schema, batched = serial, a re-run byte-equal.
+8. probes   — both probe entry points at their default sizes through
+              ``python -m`` as a user runs them (the BN-statistics probe
+              with K6 at [640, 64, 64, 32] bf16, the gather probe with K7 at
+              its five shapes), their lines and launch counts.
+9. fit      — the training run through the port's CLI at full width
+              (configs/mnist_small.json: base_ch 32, B=32, T=10, 64x64):
+              gen-mnist (2,000 sequences), train 2 epochs, resume for a
+              third, exact launch counts per epoch, history.csv, one request
+              served from the best checkpoint, then one more epoch with
+              ``--profile-dir`` (the loop's trace of steps 10-20): epoch
+              time, frames/s and the device's busy share; and the host's
+              data path alone (gather, gather + copies to the card).
+10. overfit — the memorization gate through the CLI (base_ch 16, 4
+              sequences, 300 steps): launch counts, the loss per chunk
+              finite and falling.
 
 Phase 2 also holds the fused MC sampling kernels (K4 with its Philox
 uniforms, K5 with given uniforms) against their plain versions at one view
-(65,536 lanes) and at the MC main path's launch (16 rounds of a view).
+(65,536 lanes) and at the MC main path's launch (16 rounds of a view), the
+channel statistics kernel (K6) at the probe's activation and at ragged
+shapes, and the chained gather kernel (K7) at the gather probe's five
+shapes and on negative, out-of-range values.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, {"kernels": [...]}, and {"ok": true, "device": {"platform":
@@ -55,7 +73,9 @@ import collections
 import contextlib
 import copy
 import functools
+import csv
 import http.client
+import io
 import json
 import math
 import os
@@ -72,6 +92,9 @@ import torch.nn.functional as F
 
 from unet_convlstm_tpu_torch import benchmark
 from unet_convlstm_tpu_torch.cli import main as cli_main
+from unet_convlstm_tpu_torch.data.npz_dataset import NPZSequenceDataset
+from unet_convlstm_tpu_torch.data.pipeline import (SequenceLoader,
+                                                  prefetch_to_device)
 from unet_convlstm_tpu_torch.core.dtypes import (DEFAULT_POLICY, FP32_POLICY,
                                                  full_fp32)
 from unet_convlstm_tpu_torch.datagen import mc_reference
@@ -81,7 +104,9 @@ from unet_convlstm_tpu_torch.datagen.renderer import (VolumeScene,
 from unet_convlstm_tpu_torch.models.registry import build_model
 from unet_convlstm_tpu_torch.models.temporal_unet import (double_convs,
                                                           temporal_unet_apply)
-from unet_convlstm_tpu_torch.ops.kernels import (build, convlstm_fused,
+from unet_convlstm_tpu_torch.ops.kernels import (build, chained_gather,
+                                                 channel_stats,
+                                                 convlstm_fused,
                                                  doubleconv_fused,
                                                  launch_counts, mc_sampler,
                                                  reset_launches)
@@ -89,8 +114,11 @@ from unet_convlstm_tpu_torch.ops.losses import compute_loss
 from unet_convlstm_tpu_torch.ops.normalize import (compute_mask,
                                                    compute_norm_stats,
                                                    normalize_x, normalize_y)
+from unet_convlstm_tpu_torch.probes import bn_kernel_proto, probe_gather
 from unet_convlstm_tpu_torch.serve import StreamingPredictor, serve_http
 from unet_convlstm_tpu_torch.train.checkpoint import save_checkpoint
+from unet_convlstm_tpu_torch.train.config import TrainConfig
+from unet_convlstm_tpu_torch.train.loop import PROFILE_STEPS
 from unet_convlstm_tpu_torch.train.optim import make_optimizer
 from unet_convlstm_tpu_torch.train.steps import make_train_step
 
@@ -115,7 +143,14 @@ MC_CAMERA = dict(origin=(0, 0, 600_000.0), target=(0, 0, 1500.0),
                  g=0.85)
 MC_CELLS = (0, 16)
 MC_SE_LIMIT = 4          # fused vs threefry means, in standard errors
-NO_LAUNCHES = {"mc_sample_flights": 0, "mc_sample_flights_uniforms": 0}
+NO_LAUNCHES = {"mc_sample_flights": 0, "mc_sample_flights_uniforms": 0,
+               "channel_sum_sumsq": 0, "chained_gather": 0}
+F32_OPS_PER_S = 67e12                    # f32 outside the tensor cores, same
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# the training run: configs/mnist_small.json, its data as the config says
+FIT_CONFIG = os.path.join(ROOT, "configs", "mnist_small.json")
+FIT_SAMPLES, FIT_EPOCHS = 2000, 2
+OVERFIT_ITERS, OVERFIT_BASE, OVERFIT_SAMPLES = 300, 16, 4
 
 
 def k1_levels(base, hw, t):
@@ -171,6 +206,10 @@ MC_K_TOL = ("u_acc bit-equal; t 1e-6 relative (log1p, a few ulps); new_d "
 MC_CROSS_TOL = ("threefry route, card against CPU: image mean 1e-4 relative, "
                 "at most 1% of pixels beyond 1e-4 relative (a last-ulp "
                 "difference of log/cos may send a lane to another voxel)")
+K6_TOL = ("sum: 1e-5 of the channel's sum of |x|; sumsq: 1e-5 relative (f32 "
+          "sums in another order); bit-equal from run to run; the means "
+          "within 1e-5, tighter than the probe script's 2e-3")
+K7_TOL = "bit-equal (the same f32 adds in link order, the same int32 math)"
 STREAM_TOL = 1e-2   # RMS error over RMS |y|: cuDNN's bf16 convs may pick
 #                     other algorithms for another batch size, which rounds
 #                     otherwise (a bf16 ulp is 2^-8); a lost or misrouted
@@ -550,6 +589,137 @@ def check_mc_kernels(gen):
     return out
 
 
+def _k6_errors(x):
+    """(ok, the means' max abs err, errors) of K6 against its plain version
+    with K6_TOL; two kernel runs must give the same bits."""
+    s, q = channel_stats.channel_sum_sumsq(x)
+    s2, q2 = channel_stats.channel_sum_sumsq(x)
+    sp, qp = channel_stats.channel_sum_sumsq_plain(x)
+    torch.cuda.synchronize()
+    dims = tuple(range(x.dim() - 1))
+    abs_sum = x.float().abs().sum(dims).clamp_min(1e-30)
+    rows = x.numel() // x.shape[-1]
+    e = {"sum_rel_abs": float(((s - sp).abs() / abs_sum).max()),
+         "sumsq_rel": float(((q - qp).abs() / qp.clamp_min(1e-30)).max()),
+         "bit_equal_runs": torch.equal(s, s2) and torch.equal(q, q2)}
+    err = max(float((s - sp).abs().max()), float((q - qp).abs().max())) / rows
+    ok = e["bit_equal_runs"] and e["sum_rel_abs"] <= 1e-5 \
+        and e["sumsq_rel"] <= 1e-5 and err <= 1e-5
+    return ok, err, e
+
+
+def k6_library(x):
+    """One PyTorch call for the same statistics: mean and inverse std per
+    channel of the channels-last view (a yardstick; the port never calls
+    it)."""
+    return torch.batch_norm_stats(x.permute(0, 3, 1, 2), 1e-5)
+
+
+def check_k6(gen):
+    """K6 at the BN probe's activation (bf16, timed), and at ragged row
+    counts and channel counts in bf16 and f32."""
+    shape = bn_kernel_proto.SHAPE
+    out = {}
+    for shp, dtype in ((shape, torch.bfloat16), ((999, 37, 32), torch.bfloat16),
+                       ((1001, 3, 24), torch.float32),
+                       ((3, 5, 7, 33), torch.float32)):
+        def make():
+            return (torch.randn(*shp, device=DEV, generator=gen) * 0.5).to(
+                dtype)
+
+        x = make()
+        ok, err, e = _k6_errors(x)
+        line = {"phase": "kernel", "kernel": "channel_sum_sumsq",
+                "shape": list(shp), "dtype": str(dtype).split(".")[-1],
+                "rows": x.numel() // shp[-1], "means_abs_err": err, **e,
+                "ok": ok}
+        if shp == shape:
+            nbytes = x.numel() * x.element_size() + 2 * 4 * shp[-1]
+            sets = [(t,) for t in copies(make, nbytes)]
+            del x
+            line.update(
+                ms=device_ms(channel_stats.channel_sum_sumsq, sets),
+                plain_ms=device_ms(channel_stats.channel_sum_sumsq_plain,
+                                   sets),
+                library_ms=device_ms(k6_library, sets),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                max_abs_err=err)
+            del sets
+            out = line
+        emit(line)
+        if not ok:
+            raise AssertionError(f"channel_sum_sumsq disagrees: {line}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _launch_floor_ms() -> float:
+    """Device time of one empty kernel launched back to back."""
+    return device_ms(lambda: torch.cuda._sleep(0), [()], n=200)
+
+
+def check_k7(gen):
+    """K7 at the gather probe's five shapes, reps 64 (timed) and 1, and on
+    negative, out-of-range values (the floor modulo): bit-equal."""
+    variants = []
+    floor_ms = _launch_floor_ms()
+    for name, shape, axis in probe_gather.VARIANTS:
+        x_np, idx_np = probe_gather.variant_inputs(shape, axis)
+        x = torch.from_numpy(x_np).to(DEV)
+        idx = torch.from_numpy(idx_np).to(DEV)
+        equal = {reps: torch.equal(
+            chained_gather.chained_gather(x, idx, axis, reps),
+            chained_gather.chained_gather_plain(x, idx, axis, reps))
+            for reps in (probe_gather.REPS, 1)}
+        reps = probe_gather.REPS
+        elems = shape[0] * shape[1]
+        nbytes = 12 * elems
+        ops_ms = reps * elems / F32_OPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+
+        def make():
+            return (torch.rand(*shape, device=DEV, generator=gen),
+                    torch.randint(0, shape[axis], shape, device=DEV,
+                                  generator=gen, dtype=torch.int32))
+
+        sets = copies(make, nbytes)
+        line = {"phase": "kernel", "kernel": "chained_gather",
+                "variant": name, "shape": list(shape), "axis": axis,
+                "reps": reps, "bit_equal": {str(k): v for k, v in
+                                            equal.items()},
+                "ms": device_ms(lambda a, i: chained_gather.chained_gather(
+                    a, i, axis, reps), sets),
+                "plain_ms": device_ms(
+                    lambda a, i: chained_gather.chained_gather_plain(
+                        a, i, axis, reps), sets),
+                "library_ms": device_ms(
+                    lambda a, i: torch.gather(a, axis, i),
+                    [(a, i.long()) for a, i in sets]),
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "launch_floor_ms": floor_ms, "max_abs_err": 0.0,
+                "ok": all(equal.values())}
+        emit(line)
+        variants.append(line)
+        if not line["ok"]:
+            raise AssertionError(f"chained_gather disagrees: {line}")
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy((rng.standard_normal((512, 128)) * 300).astype(
+        np.float32)).to(DEV)
+    idx = torch.from_numpy(rng.integers(0, 128, (512, 128)).astype(
+        np.int32)).to(DEV)
+    negative = {axis: torch.equal(
+        chained_gather.chained_gather(x, idx, axis, probe_gather.REPS),
+        chained_gather.chained_gather_plain(x, idx, axis, probe_gather.REPS))
+        for axis in (0, 1)}
+    emit({"phase": "kernel", "kernel": "chained_gather",
+          "variant": "floor modulo: values N(0, 300^2) at (512,128)",
+          "bit_equal_by_axis": negative, "ok": all(negative.values())})
+    if not all(negative.values()):
+        raise AssertionError("chained_gather: floor modulo case disagrees")
+    return variants
+
+
 # ---------------------------------------------------------------------------
 # 3. serving
 # ---------------------------------------------------------------------------
@@ -737,6 +907,20 @@ def phase_latency(pred):
                                                                  wall_ms)})
 
 
+def kernel_group(name: str) -> str:
+    """The group a device event's name belongs to, for the breakdowns."""
+    return ("mc_sample_flights (K4)" if "mc_sample_flights" in name
+            else "conv3x3_fused (K2)" if "conv3x3_fused" in name
+            else "gate_update_bwd (K1 backward)" if "gate_update_bwd" in name
+            else "gate_update (K1)" if "gate_update" in name
+            else "library conv" if ("xmma" in name or "conv" in name
+                                    or "gemm" in name or "cudnn" in name)
+            else "optimizer (AdamW, clip)" if ("adam" in name.lower()
+                                               or "multi_tensor" in name)
+            else "memcpy" if name.startswith("Memcpy")
+            else "other (casts, elementwise, cat, pool, reductions)")
+
+
 def device_breakdown(prof, wall_ms):
     """Device time of a profiled window by kernel group, its busy share,
     and the top kernels."""
@@ -754,25 +938,41 @@ def device_breakdown(prof, wall_ms):
     total_us = sum(dev_us(e) for e in rows)
     groups = collections.Counter()
     for e in rows:
-        name = e.key
-        group = ("mc_sample_flights (K4)" if "mc_sample_flights" in name
-                 else "conv3x3_fused (K2)" if "conv3x3_fused" in name
-                 else "gate_update_bwd (K1 backward)"
-                 if "gate_update_bwd" in name
-                 else "gate_update (K1)" if "gate_update" in name
-                 else "library conv" if ("xmma" in name or "conv" in name
-                                         or "gemm" in name
-                                         or "cudnn" in name)
-                 else "optimizer (AdamW, clip)" if ("adam" in name.lower()
-                                                    or "multi_tensor" in name)
-                 else "memcpy" if name.startswith("Memcpy")
-                 else "other (casts, elementwise, cat, pool, reductions)")
-        groups[group] += dev_us(e) / 1e3
+        groups[kernel_group(e.key)] += dev_us(e) / 1e3
     return {"wall_ms": wall_ms, "device_ms": total_us / 1e3,
             "device_busy_share": total_us / 1e3 / wall_ms,
             "by_group_ms": dict(groups.most_common()),
             "top": [{"name": e.key[:90], "calls": e.count,
                      "device_ms": dev_us(e) / 1e3} for e in rows[:16]]}
+
+
+def trace_breakdown(path: str, steps: int):
+    """Device time by kernel group and the device's busy share in a chrome
+    trace of ``steps`` steps (torch.profiler's export): the window runs from
+    the first host event to the end of the last; busy is the union of the
+    device events inside it."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    on_device = ("kernel", "gpu_memcpy", "gpu_memset")
+    host = [e for e in events if e.get("cat") not in on_device]
+    t0 = min(e["ts"] for e in host)
+    t1 = max(e["ts"] + e["dur"] for e in host)
+    busy, reach = 0.0, t0
+    groups = collections.Counter()
+    for e in sorted((e for e in events if e.get("cat") in on_device),
+                    key=lambda e: e["ts"]):
+        groups[kernel_group(e["name"])] += e["dur"] / 1e3
+        start, end = max(e["ts"], reach), min(e["ts"] + e["dur"], t1)
+        if end > start:
+            busy += end - start
+        reach = max(reach, end)
+    wall_ms = (t1 - t0) / 1e3
+    return {"traced_steps": steps, "wall_ms": wall_ms,
+            "wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / 1e3 / wall_ms,
+            "by_group_ms": dict(groups.most_common())}
 
 
 # ---------------------------------------------------------------------------
@@ -1221,6 +1421,230 @@ def phase_renders(workdir: str):
         raise AssertionError("gen-renders checks failed")
 
 
+# ---------------------------------------------------------------------------
+# 8. the probe entry points
+# ---------------------------------------------------------------------------
+
+def _run_module(module: str):
+    """``python -m module`` from the repo root: (stdout lines, the launch
+    counts its last line reports)."""
+    r = subprocess.run([sys.executable, "-m", module], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    sys.stderr.write(r.stderr[-4000:])
+    if r.returncode != 0:
+        raise AssertionError(f"{module} exited {r.returncode}")
+    lines = r.stdout.strip().splitlines()
+    tag, counts = lines[-1].split(" ", 1)
+    if tag != "launches":
+        raise AssertionError(f"{module}: no launch counts in {lines[-1]!r}")
+    return lines, json.loads(counts)
+
+
+def phase_probes():
+    """Both probes as a user runs them; each resets the counts before its
+    run and prints them after. Returns the launch counts."""
+    bn_lines, bn = _run_module("unet_convlstm_tpu_torch.probes.bn_kernel_proto")
+    g_lines, g = _run_module("unet_convlstm_tpu_torch.probes.probe_gather")
+    expect = {"channel_sum_sumsq": bn_kernel_proto.ITERS + 1,
+              "chained_gather": len(probe_gather.VARIANTS)
+              * (2 + probe_gather.ITERS)}
+    counts = {**bn, **g}
+    ok = ("parity OK" in bn_lines and counts == expect
+          and sum(": OK " in ln for ln in g_lines) == len(
+              probe_gather.VARIANTS) and not any("WRONG" in ln
+                                                 for ln in g_lines))
+    emit({"phase": "probes", "bn_kernel_proto": bn_lines,
+          "probe_gather": g_lines, "launches": counts, "expected": expect,
+          "ok": ok})
+    if not ok:
+        raise AssertionError("probe entry points failed")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 9. the training run, and 10. the overfit gate
+# ---------------------------------------------------------------------------
+
+def _cli(argv):
+    """The port's CLI in this process: its stdout (echoed to stderr)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    sys.stderr.write(buf.getvalue())
+    return buf.getvalue()
+
+
+def _scaled(counts, k):
+    return {name: n * k for name, n in counts.items()}
+
+
+def phase_fit(workdir: str):
+    """gen-mnist, train 2 epochs, resume for 1, serve the best checkpoint,
+    one profiled epoch. Returns (npz path, launches of the CLI runs)."""
+    npz = os.path.join(workdir, "mnist_seq10.npz")
+    ck = os.path.join(workdir, "ckpts")
+    t0 = time.perf_counter()
+    _cli(["gen-mnist", "--out", npz, "--seq-len", str(TT), "--num-samples",
+          str(FIT_SAMPLES), "--image-size", str(THW), "--seed", str(SEED),
+          "--xy"])
+    gen_s = time.perf_counter() - t0
+    with open(FIT_CONFIG) as f:
+        cfg = TrainConfig.from_dict(json.load(f))
+    steps = int(cfg.train_frac * FIT_SAMPLES) // cfg.batch_size
+    evals = math.ceil((FIT_SAMPLES - int(cfg.train_frac * FIT_SAMPLES))
+                      / cfg.batch_size)
+    per_epoch = {"gate_update": (steps + evals) * K1_PER_STEP,
+                 "gate_update_bwd": steps * K1_PER_STEP,
+                 "conv3x3_fused": (steps + evals) * K2_PER_STEP,
+                 **NO_LAUNCHES}
+    last = os.path.join(ck, "custom_last.pt")
+    runs = {}
+    for tag, flags, n_epochs in (("train", [], FIT_EPOCHS),
+                                 ("resume", ["--resume", last], 1)):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = _cli(["train", "--config", FIT_CONFIG, "--npz", npz, *flags,
+                    f"checkpoint_dir={ck}",
+                    f"epochs={FIT_EPOCHS + (tag == 'resume')}"])
+        runs[tag] = {"wall_s": time.perf_counter() - t0,
+                     "launches": launch_counts(),
+                     "expected": _scaled(per_epoch, n_epochs),
+                     "epoch_lines": [ln for ln in out.splitlines()
+                                     if ln.startswith("Epoch ")]}
+    runs["resume"]["resumed_at_epoch_3"] = (
+        f"resumed from {last} at epoch {FIT_EPOCHS + 1}"
+        in out)
+    with open(os.path.join(ck, "history.csv"), newline="") as f:
+        history = list(csv.DictReader(f))
+    frames = steps * cfg.batch_size * TT
+    epochs = [{"epoch": int(r["epoch"]), "train_loss": float(r["train_loss"]),
+               "val_loss": float(r["val_loss"]),
+               "val_mae": float(r["val_mae"]),
+               "train_time_s": float(r["train_time_s"]),
+               "frames_per_s": frames / float(r["train_time_s"])}
+              for r in history]
+
+    # one request served from the best checkpoint
+    pred = StreamingPredictor(os.path.join(ck, "custom_best.pt"), device=DEV)
+    frame = np.ascontiguousarray(np.moveaxis(np.load(npz)["X"][:1, :1], 2,
+                                             -1))
+    sid = pred.open_session(1, THW, THW)
+    torch.cuda.synchronize()
+    reset_launches()
+    y = pred.predict(sid, frame)
+    serve = {"launches": launch_counts(), "expected": dict(
+        NO_LAUNCHES, gate_update=sum(n for *_, n in k1_levels(TBASE, THW, 1)),
+        gate_update_bwd=0, conv3x3_fused=K2_PER_STEP),
+        "shape": list(y.shape), "finite": bool(np.isfinite(y).all())}
+    del pred
+
+    # one more epoch with the loop's own trace of steps 10-20: the device's
+    # busy share in the steady state
+    trace_dir = os.path.join(workdir, "trace")
+    torch.cuda.synchronize()
+    reset_launches()
+    out = _cli(["train", "--config", FIT_CONFIG, "--npz", npz, "--resume",
+                last, "--profile-dir", trace_dir, f"checkpoint_dir={ck}",
+                f"epochs={FIT_EPOCHS + 2}"])
+    prof_counts = launch_counts()
+    with open(os.path.join(ck, "history.csv"), newline="") as f:
+        row = list(csv.DictReader(f))[-1]
+    profiled = {"epoch": int(row["epoch"]),
+                "train_time_s": float(row["train_time_s"]),
+                "frames_per_s": frames / float(row["train_time_s"]),
+                "launches": prof_counts, "expected": per_epoch,
+                "epoch_lines": [ln for ln in out.splitlines()
+                                if ln.startswith("Epoch ")],
+                **trace_breakdown(os.path.join(trace_dir, "trace.json"),
+                                  PROFILE_STEPS[1] - PROFILE_STEPS[0])}
+
+    # the host's data path alone over one epoch of train batches: the
+    # gather (numpy), and the gather with the copies to the card
+    ds = NPZSequenceDataset(npz)
+    loader = SequenceLoader(ds, ds.train_val_split(cfg.train_frac,
+                                                   cfg.split_seed)[0],
+                            cfg.batch_size, seed=cfg.seed,
+                            drop_remainder=True)
+    t0 = time.perf_counter()
+    for _ in loader:
+        pass
+    gather_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in prefetch_to_device(loader, 2, DEV):
+        pass
+    torch.cuda.synchronize()
+    data_path = {"batches": len(loader),
+                 "gather_ms_per_batch": gather_s / len(loader) * 1e3,
+                 "gather_and_copy_ms_per_batch":
+                     (time.perf_counter() - t0) / len(loader) * 1e3}
+    del ds, loader
+
+    ok = (all(r["launches"] == r["expected"] for r in runs.values())
+          and runs["resume"]["resumed_at_epoch_3"]
+          and len(runs["resume"]["epoch_lines"]) == 1
+          and runs["resume"]["epoch_lines"][0].startswith(
+              f"Epoch {FIT_EPOCHS + 1}/")
+          and [e["epoch"] for e in epochs] == list(range(1,
+                                                          FIT_EPOCHS + 2))
+          and all(math.isfinite(e["train_loss"]) and math.isfinite(
+              e["val_loss"]) for e in epochs)
+          and serve["launches"] == serve["expected"] and serve["finite"]
+          and serve["shape"] == [1, 1, THW, THW, 1]
+          and prof_counts == per_epoch
+          and profiled["epoch"] == FIT_EPOCHS + 2
+          and len(profiled["epoch_lines"]) == 1)
+    emit({"phase": "fit", "config": os.path.relpath(FIT_CONFIG, ROOT),
+          "samples": FIT_SAMPLES, "B": cfg.batch_size, "T": TT, "H": THW,
+          "base_ch": cfg.model["base_ch"], "train_steps_per_epoch": steps,
+          "eval_batches_per_epoch": evals, "gen_mnist_s": gen_s,
+          "runs": runs, "history": epochs, "serve": serve,
+          "traced_epoch": profiled, "data_path": data_path, "ok": ok})
+    if not ok:
+        raise AssertionError("training run checks failed")
+    return npz, {k: runs["train"]["launches"][k]
+                 + runs["resume"]["launches"][k] for k in per_epoch}
+
+
+def phase_overfit(npz: str, workdir: str):
+    """The overfit gate through the CLI; its exit code says whether it
+    converged (the loss below 5e-4), which 300 steps need not reach."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli_main(["overfit", "--npz", npz, "--base-ch", str(OVERFIT_BASE),
+                      "--num-samples", str(OVERFIT_SAMPLES), "--max-iters",
+                      str(OVERFIT_ITERS), "--out-dir",
+                      os.path.join(workdir, "overfit")])
+            code = 0
+        except SystemExit as e:       # the gate's verdict, 0 or 1
+            code = e.code
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    sys.stderr.write(out)
+    counts = launch_counts()
+    losses = [float(ln.split("loss")[1]) for ln in out.splitlines()
+              if ln.startswith("iter ")]
+    iters = 100 * len(losses)
+    expect = dict(NO_LAUNCHES, gate_update=iters * K1_PER_STEP,
+                  gate_update_bwd=iters * K1_PER_STEP,
+                  conv3x3_fused=iters * K2_PER_STEP)
+    ok = (code in (0, 1)
+          and (len(losses) == OVERFIT_ITERS // 100 or code == 0)
+          and all(math.isfinite(v) for v in losses)
+          and all(v < losses[0] for v in losses[1:])
+          and losses[-1] == min(losses) and counts == expect)
+    emit({"phase": "overfit", "base_ch": OVERFIT_BASE,
+          "samples": OVERFIT_SAMPLES, "max_iters": OVERFIT_ITERS,
+          "exit_code": code, "converged": code == 0, "chunk_losses": losses,
+          "wall_s": wall, "launches": counts, "expected": expect, "ok": ok})
+    if not ok:
+        raise AssertionError("overfit gate: bad losses or launch counts")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1241,7 +1665,12 @@ def main() -> int:
                                   "standard errors (from the per-round "
                                   "means)",
           "gen_renders": "batched = serial within 1e-6 relative; a re-run "
-                         "byte-equal"})
+                         "byte-equal",
+          "channel_sum_sumsq": K6_TOL, "chained_gather": K7_TOL,
+          "fit": "launch counts exact per epoch; the resume runs one "
+                 "epoch; losses finite; one served request finite",
+          "overfit": "chunk losses finite, each below the first, the last "
+                     "the lowest"})
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     k1 = check_k1(gen, K1_LEVELS, B, "request")
     k2 = check_k2(gen, K2_CONVS, B * T, "request", serving=True)
@@ -1249,6 +1678,8 @@ def main() -> int:
     k1_train = check_k1(gen, K1_TRAIN_LEVELS, TB, "step")
     k2_train = check_k2(gen, K2_TRAIN_CONVS, TB * TT, "step", serving=False)
     mc_k = check_mc_kernels(gen)
+    k6 = check_k6(gen)
+    k7 = check_k7(gen)
     with tempfile.TemporaryDirectory() as workdir:
         pred, counts = phase_serve(workdir)
     phase_latency(pred)
@@ -1259,6 +1690,12 @@ def main() -> int:
     k4_launches, k4_iters, _ = phase_mc()
     with tempfile.TemporaryDirectory() as workdir:
         phase_renders(workdir)
+    probe_counts = phase_probes()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        npz, fit_counts = phase_fit(workdir)
+        torch.cuda.empty_cache()
+        phase_overfit(npz, workdir)
 
     per = f"one request: B={B}, T={T}, {HW}x{HW}, base_ch {BASE}, bf16"
     per_step = (f"one training step: B={TB}, T={TT}, {THW}x{THW}, base_ch "
@@ -1325,6 +1762,36 @@ def main() -> int:
     kernels[-1]["note"] = ("the exact-parity entry point (uniforms given), "
                            "which holds K4's math; the render path draws "
                            "its uniforms in K4 and does not launch it")
+    for k in kernels[:3]:
+        k["fit_launches"] = fit_counts[k["name"]]
+    kernels.append({
+        "name": "channel_sum_sumsq", "route": "cuda",
+        "source": "unet_convlstm_tpu_torch/csrc/channel_stats.cu",
+        "replaces": "scripts/perf/bn_kernel_proto.py:46",
+        "launches": probe_counts["channel_sum_sumsq"],
+        "max_abs_err": k6["max_abs_err"], "ms": k6["ms"],
+        "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+        "bound_by": k6["bound_by"], "library_ms": k6["library_ms"],
+        "library": "torch.batch_norm_stats on the channels-last view",
+        "per": "one call at the BN probe's activation [640, 64, 64, 32] "
+               "bf16; max_abs_err is the means'"})
+    head = next(v for v in k7 if v["shape"] == [512, 128]
+                and v["axis"] == 0)
+    kernels.append({
+        "name": "chained_gather", "route": "cuda",
+        "source": "unet_convlstm_tpu_torch/csrc/chained_gather.cu",
+        "replaces": "scripts/perf/probe_pallas_gather.py:33",
+        "launches": probe_counts["chained_gather"], "max_abs_err": 0.0,
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library": "torch.gather, one link (reps 1)",
+        "launch_floor_ms": head["launch_floor_ms"],
+        "per": f"one launch of variant C, (512, 128) axis 0, reps "
+               f"{probe_gather.REPS}",
+        "variants": [{k: v[k] for k in ("variant", "ms", "plain_ms",
+                                        "library_ms", "bound_ms")}
+                     for v in k7]})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import convlstm_fused, doubleconv_fused, mc_sampler
+from . import (chained_gather, channel_stats, convlstm_fused,
+               doubleconv_fused, mc_sampler)
 
 # kernel name → (module, the integer that counts its launches)
 KERNEL_COUNTERS = {"gate_update": (convlstm_fused, "launches"),
@@ -17,7 +18,9 @@ KERNEL_COUNTERS = {"gate_update": (convlstm_fused, "launches"),
                    "conv3x3_fused": (doubleconv_fused, "launches"),
                    "mc_sample_flights": (mc_sampler, "launches"),
                    "mc_sample_flights_uniforms": (mc_sampler,
-                                                  "uniforms_launches")}
+                                                  "uniforms_launches"),
+                   "channel_sum_sumsq": (channel_stats, "launches"),
+                   "chained_gather": (chained_gather, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:

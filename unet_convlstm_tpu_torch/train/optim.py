@@ -97,6 +97,20 @@ class Optimizer:
         self.adamw.step()
         return True
 
+    def state_dict(self) -> Dict:
+        """AdamW's moments, step and learning rate, and the skip counters
+        (live tensors: copy before mutating)."""
+        return {"adamw": self.adamw.state_dict(),
+                "notfinite_count": self.notfinite_count,
+                "total_notfinite": self.total_notfinite}
+
+    def load_state_dict(self, d: Dict) -> None:
+        """Restore a ``state_dict`` of an optimizer over the same trainable
+        parameters; the moments move to the parameters' device."""
+        self.adamw.load_state_dict(d["adamw"])
+        self.notfinite_count = int(d["notfinite_count"])
+        self.total_notfinite = int(d["total_notfinite"])
+
 
 def make_optimizer(named_params: Iterable[Tuple[str, nn.Parameter]],
                    lr: float, weight_decay: float = 1e-4,
