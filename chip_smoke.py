@@ -5,8 +5,9 @@
 
 Phases, each printing JSON lines; any failure exits non-zero:
 
-1. device   — the card's name and power limit (nvidia-smi) and the build of
-              every kernel from ``unet_convlstm_tpu_torch/csrc``.
+1. device   — the card's name and power limit (nvidia-smi), the build of
+              every kernel from ``unet_convlstm_tpu_torch/csrc``, and
+              ptxas's registers and spills of the fused conv's kernels.
 2. kernel   — each kernel against its plain PyTorch version on the card,
               with its device time, the plain version's, a library
               yardstick's and the least time the card could take (bound):
@@ -80,6 +81,7 @@ import json
 import math
 import os
 import pickle
+import re
 import statistics
 import subprocess
 import sys
@@ -199,6 +201,9 @@ K2_TOL = ("y: 2^-7 * |y| + 1e-3 * max|y| (the f32 sums run in another order, "
           "so a bf16 rounding may flip by one ulp); sum, sumsq: 1e-3 of the "
           "sum of |y| resp. of sumsq (f32 atomics in no fixed order)")
 K2_F32_TOL = "y: 1e-4 * max|y| (f32 FMA in another order)"
+K2_RERUN_TOL = ("wgmma route: y bit-equal in a second run (K is reduced in "
+                "a fixed order, split K included); NaNs where the plain "
+                "version has them")
 MC_K_TOL = ("u_acc bit-equal; t 1e-6 relative (log1p, a few ulps); new_d "
             "within 1e-5 per component in all but 0.01% of lanes and 1e-3 "
             "in all (an ulp of cos theta near +-1 moves sin theta by up to "
@@ -243,6 +248,20 @@ TRAIN_F32_TOL = dict(loss=1e-4, sums=1e-4, grad=1e-3, params_flipped=5e-3,
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def path_counts():
+    """``launch_counts()`` with the fused conv's calls by route."""
+    return dict(launch_counts(), **{
+        f"conv3x3_fused_{route}": n
+        for route, n in doubleconv_fused.launches_by_route.items()})
+
+
+def on_wgmma(expect):
+    """An expectation of ``path_counts()``: every fused-conv call of a bf16
+    main path takes the wgmma route."""
+    return dict(expect, conv3x3_fused_wgmma=expect["conv3x3_fused"],
+                conv3x3_fused_generic=0)
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -302,7 +321,32 @@ def phase_device():
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "build_wall_s": time.perf_counter() - t0})
+    emit(dict(phase="ptxas", source="conv3x3_fused.cu", **ptxas_report(
+        (build.build_dir() / "conv3x3_fused.log").read_text())))
     return smi
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, and the count of C7517 warnings (a wgmma wait the compiler
+    injected, which serialises the asynchronous products)."""
+    kernels, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d(conv3x3_fused_\w+?"
+                      r"_kernel)(I\w+?EE)?", line)
+        if m:   # template arguments: ints and bools as values, types named
+            args = re.findall(r"^I(f)|(bfloat16)|Li(\d+)E|Lb(\d)E",
+                              m.group(2) or "")
+            args = [("f32" if f else "bf16" if b else i or t)
+                    for f, b, i, t in args]
+            name = m.group(1) + ("<" + ",".join(args) + ">" if args else "")
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if name and spill:
+            kernels.setdefault(name, {})["spill_bytes"] = int(spill.group(1))
+        if name and regs:
+            kernels.setdefault(name, {})["registers"] = int(regs.group(1))
+    return {"kernels": kernels, "c7517": log.count("C7517")}
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +461,8 @@ def k2_library(x, w, b, inv, shift):
     return y, yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))
 
 
-def _k2_inputs(gen, n, side, cin, cout, prologue, dtype):
+def _k2_inputs(gen, n, side, cin, cout, prologue, dtype,
+               positive_shift=False):
     def rand(*shape, normal=True):
         f = torch.randn if normal else torch.rand
         return f(*shape, device=DEV, generator=gen)
@@ -426,82 +471,210 @@ def _k2_inputs(gen, n, side, cin, cout, prologue, dtype):
     w = (rand(cout, cin, 3, 3) / (3 * cin ** 0.5)).to(dtype)
     b = rand(cout) * 0.1
     inv = rand(cin, normal=False) + 0.5 if prologue else None
-    shift = rand(cin) * 0.3 if prologue else None
+    shift = None
+    if prologue:     # about half the channels shifted up, or all of them
+        shift = rand(cin, normal=False) * 0.3 + 0.05 if positive_shift \
+            else rand(cin) * 0.3
     return x, w, b, inv, shift
 
 
 def _k2_errors(args, f32: bool):
+    """Kernel against plain with K2_TOL (K2_F32_TOL); NaNs must sit where
+    the plain version has them, and the finite values agree."""
     y, s, q = doubleconv_fused.fused_conv3x3(*args)
     yp, sp, qp = doubleconv_fused.fused_conv3x3_plain(*args)
     torch.cuda.synchronize()
-    d = (y.float() - yp.float()).abs()
-    scale = yp.float().abs().max().item()
+    nan = torch.isnan(yp)
+    same_nan = torch.equal(torch.isnan(y), nan)
+    yk, yf = y.float()[~nan], yp.float()[~nan]
+    d = (yk - yf).abs()
+    scale = yf.abs().max().item()
     if f32:
         ok = d.max().item() <= 1e-4 * scale
     else:
-        ok = bool((d <= 2 ** -7 * yp.float().abs() + 1e-3 * scale).all())
-    s_rel = ((s - sp).abs().max() / yp.float().abs().sum(dim=(0, 1, 2)).max()
-             ).item()
-    q_rel = ((q - qp).abs().max() / qp.max()).item()
-    ok = ok and s_rel <= 1e-3 and q_rel <= 1e-3
+        ok = bool((d <= 2 ** -7 * yf.abs() + 1e-3 * scale).all())
+    if nan.any():   # the sums are NaN in both
+        s_rel = q_rel = 0.0
+        ok = ok and bool(torch.isnan(s).all() and torch.isnan(sp).all())
+    else:
+        s_rel = ((s - sp).abs().max() / yp.float().abs().sum(dim=(0, 1, 2))
+                 .max()).item()
+        q_rel = ((q - qp).abs().max() / qp.max()).item()
+    ok = ok and same_nan and s_rel <= 1e-3 and q_rel <= 1e-3
     return ok, d.max().item(), scale, s_rel, q_rel
 
 
+def _k2_plan(n, side, cin, cout, dtype):
+    p = doubleconv_fused.plan(n, side, side, cin, cout, dtype)
+    return p.route, {"tile": [p.bm, p.bn, p.bk], "stages": p.stages,
+                     "splits": p.splits, "blocks": p.blocks,
+                     "workspace_bytes": p.workspace_bytes}
+
+
+def _k2_check_line(gen, n, side, cin, cout, pro, dtype=torch.bfloat16,
+                   **inputs):
+    """One shape checked, as its line with the route and plan; on the wgmma
+    route y must be the same bits in a second run (its K order is fixed)."""
+    args = _k2_inputs(gen, n, side, cin, cout, pro, dtype, **inputs)
+    ok, err, scale, s_rel, q_rel = _k2_errors(args, f32=dtype != torch.bfloat16)
+    route, plan = _k2_plan(n, side, cin, cout, dtype)
+    line = {"phase": "kernel", "kernel": "conv3x3_fused",
+            "shape": [n, side, side, cin, cout], "prologue": pro,
+            "dtype": str(dtype).split(".")[-1], "route": route, "plan": plan,
+            "y_abs_err": err, "y_scale": scale, "sum_rel_err": s_rel,
+            "sumsq_rel_err": q_rel}
+    if route == "wgmma":
+        y1 = doubleconv_fused.fused_conv3x3(*args)[0]
+        y2 = doubleconv_fused.fused_conv3x3(*args)[0]
+        line["bit_equal_rerun"] = torch.equal(y1, y2)
+        ok = ok and line["bit_equal_rerun"]
+    line["ok"] = ok
+    return line
+
+
+def _k2_time(line, gen, n, side, cin, cout, pro):
+    """Device times of the kernel, the plain version and the library chain,
+    the bound, and the shares."""
+    m = n * side * side
+    nbytes = 2 * (m * cin + 9 * cin * cout + m * cout) \
+        + 4 * (cout + 2 * cin + 2 * cout)
+    ops_ms = 2 * m * 9 * cin * cout / BF16_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    sets = copies(lambda: _k2_inputs(gen, n, side, cin, cout, pro,
+                                     torch.bfloat16), nbytes)
+    line["ms"] = device_ms(doubleconv_fused.fused_conv3x3, sets)
+    line["plain_ms"] = device_ms(doubleconv_fused.fused_conv3x3_plain, sets)
+    line["library_ms"] = device_ms(k2_library, sets)
+    line["bound_ms"] = max(ops_ms, bytes_ms)
+    line["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    line["tflops"] = 2 * m * 9 * cin * cout / line["ms"] / 1e9
+    line["pct_of_bound"] = 100 * line["bound_ms"] / line["ms"]
+    line["vs_library"] = line["ms"] / line["library_ms"]
+    return ops_ms, bytes_ms
+
+
 def check_k2(gen, convs, n, per, serving: bool):
-    """K2 at every shape of a pass of ``n`` images, bf16, timed. Serving
-    also checks the other prologue setting at each shape and the f32
-    route."""
+    """K2 at every shape of a pass of ``n`` images, bf16, timed; y the same
+    bits in a rerun. Serving also checks the other prologue setting at each
+    shape and the f32 route."""
     total = dict(_total(), library_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
-    bf16 = torch.bfloat16
     for side, cin, cout, prologue, launches in convs:
         for pro in (prologue, not prologue) if serving else (prologue,):
-            args = _k2_inputs(gen, n, side, cin, cout, pro, bf16)
-            ok, err, scale, s_rel, q_rel = _k2_errors(args, f32=False)
-            line = {"phase": "kernel", "kernel": "conv3x3_fused",
-                    "shape": [n, side, side, cin, cout], "prologue": pro,
-                    "dtype": "bfloat16", "y_abs_err": err, "y_scale": scale,
-                    "sum_rel_err": s_rel, "sumsq_rel_err": q_rel, "ok": ok}
+            line = _k2_check_line(gen, n, side, cin, cout, pro)
             if pro != prologue:
                 emit(line)
-                if not ok:
+                if not line["ok"]:
                     raise AssertionError(f"conv3x3_fused disagrees: {line}")
                 continue
-            m = n * side * side
-            nbytes = 2 * (m * cin + 9 * cin * cout + m * cout) \
-                + 4 * (cout + 2 * cin + 2 * cout)
-            ops_ms = 2 * m * 9 * cin * cout / BF16_OPS_PER_S * 1e3
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            sets = copies(lambda: _k2_inputs(gen, n, side, cin, cout, pro,
-                                             bf16), nbytes)
-            line["ms"] = device_ms(doubleconv_fused.fused_conv3x3, sets)
-            line["plain_ms"] = device_ms(
-                doubleconv_fused.fused_conv3x3_plain, sets)
-            line["library_ms"] = device_ms(k2_library, sets)
-            line["bound_ms"] = max(ops_ms, bytes_ms)
-            line["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
-            line["tflops"] = 2 * m * 9 * cin * cout / line["ms"] / 1e9
+            ops_ms, bytes_ms = _k2_time(line, gen, n, side, cin, cout, pro)
             line[f"launches_per_{per}"] = launches
             emit(line)
-            if not ok:
+            if not line["ok"]:
                 raise AssertionError(f"conv3x3_fused disagrees: {line}")
             for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 total[k] += line[k] * launches
             total["ops_ms"] += ops_ms * launches
             total["bytes_ms"] += bytes_ms * launches
-            total["max_abs_err"] = max(total["max_abs_err"], err)
+            total["max_abs_err"] = max(total["max_abs_err"], line["y_abs_err"])
     if not serving:
         return total
     # the f32 route (FP32 policy) at the widest and the largest map
     for side, cin, cout in ((HW // 16, 16 * BASE, 16 * BASE),
                             (HW, BASE, BASE)):
-        args = _k2_inputs(gen, n, side, cin, cout, True, torch.float32)
-        ok, err, scale, s_rel, q_rel = _k2_errors(args, f32=True)
-        emit({"phase": "kernel", "kernel": "conv3x3_fused",
-              "shape": [n, side, side, cin, cout], "prologue": True,
-              "dtype": "float32", "y_abs_err": err, "y_scale": scale,
-              "sum_rel_err": s_rel, "sumsq_rel_err": q_rel, "ok": ok})
+        line = _k2_check_line(gen, n, side, cin, cout, True, torch.float32)
+        emit(line)
+        if not line["ok"] or line["route"] != "generic":
+            raise AssertionError(f"conv3x3_fused (f32) disagrees: {line}")
+    return total
+
+
+def check_k2_edges(gen):
+    """K2 where its design is most likely to break: every shape of the
+    B=1, T=1 request (n = 1: M of 64 pixels at 8x8, K split far), timed;
+    16 -> 16 and 16 -> 32 channels (the overfit gate's base_ch 16); pixel
+    counts that are no multiple of any tile (300, 100, 720); every shift
+    > 0, so that relu(0 * inv + shift) > 0 where the halo must be 0; a NaN
+    in x, which must reach y where the plain version has it; an empty
+    batch, whose sums must come back 0. Every case on the wgmma route, y
+    the same bits in a rerun. Returns the B=1, T=1 request's totals."""
+    total = dict(_total(), library_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+    cases = [dict(n=1, side=side, cin=cin, cout=cout, pro=pro, launches=k)
+             for side, cin, cout, pro, k in K2_CONVS]
+    cases += [dict(n=B * 10, side=HW // 2, cin=16, cout=16, pro=True),
+              dict(n=B * 10, side=HW // 4, cin=16, cout=32, pro=False),
+              dict(n=3, side=10, cin=64, cout=64, pro=True),
+              dict(n=1, side=10, cin=512, cout=256, pro=False),
+              dict(n=5, side=12, cin=32, cout=64, pro=True),
+              dict(n=B, side=32, cin=128, cout=128, pro=True,
+                   positive_shift=True),
+              dict(n=B * T, side=HW, cin=BASE, cout=BASE, pro=True,
+                   positive_shift=True),
+              dict(n=2, side=8, cin=512, cout=512, pro=True,
+                   positive_shift=True)]
+    for c in cases:
+        line = _k2_check_line(gen, c["n"], c["side"], c["cin"], c["cout"],
+                              c["pro"], positive_shift=c.get("positive_shift",
+                                                             False))
+        line["case"] = ("b1t1" if "launches" in c else "positive_shift"
+                        if c.get("positive_shift") else "edge")
+        ok = line["ok"] and line["route"] == "wgmma"
+        if "launches" in c:
+            ops_ms, bytes_ms = _k2_time(line, gen, c["n"], c["side"],
+                                        c["cin"], c["cout"], c["pro"])
+            line["launches_per_request"] = c["launches"]
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                total[k] += line[k] * c["launches"]
+            total["ops_ms"] += ops_ms * c["launches"]
+            total["bytes_ms"] += bytes_ms * c["launches"]
+            total["max_abs_err"] = max(total["max_abs_err"], line["y_abs_err"])
+        emit(line)
         if not ok:
-            raise AssertionError("conv3x3_fused (f32) disagrees")
+            raise AssertionError(f"conv3x3_fused disagrees: {line}")
+    # a NaN in x reaches y (the prologue's ReLU keeps it), with and without
+    # the prologue, on an unsplit and a split plan
+    for n, side, cin, cout, pro in ((B * T, HW // 4, 2 * BASE, 2 * BASE, True),
+                                    (B * T, HW // 16, 8 * BASE, 16 * BASE,
+                                     False)):
+        x, w, b, inv, shift = _k2_inputs(gen, n, side, cin, cout, pro,
+                                         torch.bfloat16)
+        x[1, side // 2, 0, cin // 3] = float("nan")
+        ok, err, scale, _, _ = _k2_errors((x, w, b, inv, shift), f32=False)
+        y = doubleconv_fused.fused_conv3x3(x, w, b, inv, shift)[0]
+        nan_pixels = int(torch.isnan(y).any(dim=-1).sum())
+        route, plan = _k2_plan(n, side, cin, cout, torch.bfloat16)
+        line = {"phase": "kernel", "kernel": "conv3x3_fused",
+                "case": "nan_in_x", "shape": [n, side, side, cin, cout],
+                "prologue": pro, "route": route, "plan": plan,
+                "nan_pixels": nan_pixels, "y_abs_err": err, "y_scale": scale}
+        # the 3x3 neighbourhood of (side // 2, 0) inside the image
+        h = side // 2
+        reach = (min(side, h + 2) - max(0, h - 1)) * min(side, 2)
+        line["ok"] = ok and nan_pixels == reach and route == "wgmma"
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"conv3x3_fused loses a NaN: {line}")
+    # an empty batch: y empty and the sums 0, which the wgmma route's prep
+    # kernel writes into its torch.empty sums (freed NaN blocks of their
+    # size first, so that stale memory would show)
+    for cin, cout, pro in ((BASE, BASE, True), (8 * BASE, 8 * BASE, False)):
+        args = _k2_inputs(gen, 0, HW // 16, cin, cout, pro, torch.bfloat16)
+        stale = [torch.full((cout,), float("nan"), device=DEV)
+                 for _ in range(4)]
+        del stale
+        y, s, q = doubleconv_fused.fused_conv3x3(*args)
+        torch.cuda.synchronize()
+        route, plan = _k2_plan(0, HW // 16, cin, cout, torch.bfloat16)
+        line = {"phase": "kernel", "kernel": "conv3x3_fused",
+                "case": "empty_batch", "shape": [0, HW // 16, HW // 16, cin,
+                                                 cout],
+                "prologue": pro, "route": route, "plan": plan,
+                "y_shape": list(y.shape),
+                "sums_zero": bool((s == 0).all() and (q == 0).all())}
+        line["ok"] = (route == "wgmma" and line["sums_zero"]
+                      and line["y_shape"] == line["shape"][:3] + [cout])
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"conv3x3_fused on an empty batch: {line}")
     return total
 
 
@@ -786,11 +959,12 @@ def phase_serve(workdir: str):
     for r in range(REQUESTS_PER_SESSION):
         for s, sid in enumerate(sids):
             outs.append(pred.predict(sid, frames[s, r]))
-    counts = launch_counts()
+    counts = path_counts()
     requests = SESSIONS * REQUESTS_PER_SESSION
-    expect = {"gate_update": K1_PER_REQUEST * requests,
-              "gate_update_bwd": 0,
-              "conv3x3_fused": K2_PER_REQUEST * requests, **NO_LAUNCHES}
+    expect = on_wgmma({"gate_update": K1_PER_REQUEST * requests,
+                       "gate_update_bwd": 0,
+                       "conv3x3_fused": K2_PER_REQUEST * requests,
+                       **NO_LAUNCHES})
     finite = all(np.isfinite(y).all() for y in outs)
     shapes_ok = all(y.shape == (B, T, HW, HW, cfg.out_channels) for y in outs)
     emit({"phase": "serve_main_path", "requests": requests, "B": B, "T": T,
@@ -1075,10 +1249,11 @@ def phase_train(tr: _Train):
     reset_launches()
     losses = [float(step(tr.model, opt, tr.x, tr.y)[0])
               for _ in range(TRAIN_STEPS)]
-    counts = launch_counts()
-    expect = {"gate_update": K1_PER_STEP * TRAIN_STEPS,
-              "gate_update_bwd": K1_PER_STEP * TRAIN_STEPS,
-              "conv3x3_fused": K2_PER_STEP * TRAIN_STEPS, **NO_LAUNCHES}
+    counts = path_counts()
+    expect = on_wgmma({"gate_update": K1_PER_STEP * TRAIN_STEPS,
+                       "gate_update_bwd": K1_PER_STEP * TRAIN_STEPS,
+                       "conv3x3_fused": K2_PER_STEP * TRAIN_STEPS,
+                       **NO_LAUNCHES})
     finite = all(math.isfinite(v) for v in losses)
     emit({"phase": "train_main_path", "steps": TRAIN_STEPS, "B": TB,
           "T": TT, "H": THW, "W": THW, "base_ch": TBASE, "dtype": "bfloat16",
@@ -1493,10 +1668,10 @@ def phase_fit(workdir: str):
     steps = int(cfg.train_frac * FIT_SAMPLES) // cfg.batch_size
     evals = math.ceil((FIT_SAMPLES - int(cfg.train_frac * FIT_SAMPLES))
                       / cfg.batch_size)
-    per_epoch = {"gate_update": (steps + evals) * K1_PER_STEP,
-                 "gate_update_bwd": steps * K1_PER_STEP,
-                 "conv3x3_fused": (steps + evals) * K2_PER_STEP,
-                 **NO_LAUNCHES}
+    per_epoch = on_wgmma({"gate_update": (steps + evals) * K1_PER_STEP,
+                          "gate_update_bwd": steps * K1_PER_STEP,
+                          "conv3x3_fused": (steps + evals) * K2_PER_STEP,
+                          **NO_LAUNCHES})
     last = os.path.join(ck, "custom_last.pt")
     runs = {}
     for tag, flags, n_epochs in (("train", [], FIT_EPOCHS),
@@ -1508,7 +1683,7 @@ def phase_fit(workdir: str):
                     f"checkpoint_dir={ck}",
                     f"epochs={FIT_EPOCHS + (tag == 'resume')}"])
         runs[tag] = {"wall_s": time.perf_counter() - t0,
-                     "launches": launch_counts(),
+                     "launches": path_counts(),
                      "expected": _scaled(per_epoch, n_epochs),
                      "epoch_lines": [ln for ln in out.splitlines()
                                      if ln.startswith("Epoch ")]}
@@ -1533,9 +1708,9 @@ def phase_fit(workdir: str):
     torch.cuda.synchronize()
     reset_launches()
     y = pred.predict(sid, frame)
-    serve = {"launches": launch_counts(), "expected": dict(
+    serve = {"launches": path_counts(), "expected": on_wgmma(dict(
         NO_LAUNCHES, gate_update=sum(n for *_, n in k1_levels(TBASE, THW, 1)),
-        gate_update_bwd=0, conv3x3_fused=K2_PER_STEP),
+        gate_update_bwd=0, conv3x3_fused=K2_PER_STEP)),
         "shape": list(y.shape), "finite": bool(np.isfinite(y).all())}
     del pred
 
@@ -1547,7 +1722,7 @@ def phase_fit(workdir: str):
     out = _cli(["train", "--config", FIT_CONFIG, "--npz", npz, "--resume",
                 last, "--profile-dir", trace_dir, f"checkpoint_dir={ck}",
                 f"epochs={FIT_EPOCHS + 2}"])
-    prof_counts = launch_counts()
+    prof_counts = path_counts()
     with open(os.path.join(ck, "history.csv"), newline="") as f:
         row = list(csv.DictReader(f))[-1]
     profiled = {"epoch": int(row["epoch"]),
@@ -1625,13 +1800,13 @@ def phase_overfit(npz: str, workdir: str):
     wall = time.perf_counter() - t0
     out = buf.getvalue()
     sys.stderr.write(out)
-    counts = launch_counts()
+    counts = path_counts()
     losses = [float(ln.split("loss")[1]) for ln in out.splitlines()
               if ln.startswith("iter ")]
     iters = 100 * len(losses)
-    expect = dict(NO_LAUNCHES, gate_update=iters * K1_PER_STEP,
-                  gate_update_bwd=iters * K1_PER_STEP,
-                  conv3x3_fused=iters * K2_PER_STEP)
+    expect = on_wgmma(dict(NO_LAUNCHES, gate_update=iters * K1_PER_STEP,
+                           gate_update_bwd=iters * K1_PER_STEP,
+                           conv3x3_fused=iters * K2_PER_STEP))
     ok = (code in (0, 1)
           and (len(losses) == OVERFIT_ITERS // 100 or code == 0)
           and all(math.isfinite(v) for v in losses)
@@ -1653,6 +1828,7 @@ def main() -> int:
     emit({"phase": "tolerances", "gate_update": K1_TOL,
           "gate_update_bwd": K1_BWD_TOL, "conv3x3_fused": K2_TOL,
           "conv3x3_fused_f32": K2_F32_TOL,
+          "conv3x3_fused_rerun": K2_RERUN_TOL,
           "train_f32": ("loss, metric sums 1e-4 relative; first gradients "
                         "1e-3 of their norm; params after a step: at most "
                         "0.5% of elements off by more than lr/2, the rest "
@@ -1674,6 +1850,7 @@ def main() -> int:
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     k1 = check_k1(gen, K1_LEVELS, B, "request")
     k2 = check_k2(gen, K2_CONVS, B * T, "request", serving=True)
+    k2_b1 = check_k2_edges(gen)
     k1_bwd = check_k1_bwd(gen)
     k1_train = check_k1(gen, K1_TRAIN_LEVELS, TB, "step")
     k2_train = check_k2(gen, K2_TRAIN_CONVS, TB * TT, "step", serving=False)
@@ -1724,12 +1901,18 @@ def main() -> int:
          "replaces": "unet_convlstm_tpu/ops/pallas/doubleconv_fused.py:100",
          "launches": counts["conv3x3_fused"],
          "launches_per_request": K2_PER_REQUEST,
-         "max_abs_err": max(k2["max_abs_err"], k2_train["max_abs_err"]),
+         "max_abs_err": max(k2["max_abs_err"], k2_train["max_abs_err"],
+                            k2_b1["max_abs_err"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2_bound_by(k2),
          "library_ms": k2["library_ms"], "per": per,
+         "launches_by_route": {r: counts[f"conv3x3_fused_{r}"]
+                               for r in doubleconv_fused.ROUTES},
          "train": dict(train_part("conv3x3_fused", k2_train),
-                       bound_by=k2_bound_by(k2_train))},
+                       bound_by=k2_bound_by(k2_train)),
+         "request_b1t1": dict(k2_b1, bound_by=k2_bound_by(k2_b1),
+                              per=f"one request: B=1, T=1, {HW}x{HW}, "
+                                  f"base_ch {BASE}, bf16")},
         {"name": "gate_update_bwd", "route": "cuda",
          "source": "unet_convlstm_tpu_torch/csrc/gate_update_bwd.cu",
          "replaces": "unet_convlstm_tpu/ops/pallas/convlstm_fused.py:56",

@@ -110,3 +110,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         doubleconv_fused.fused_conv3x3(torch.zeros(1, 4, 4, 8, device=meta),
                                        torch.zeros(8, 8, 3, 3, device=meta))
+    # the planner raises on what neither route takes, and picks a route for
+    # the rest before any launch; the CPU's plain version counts no launch
+    with pytest.raises(ValueError, match="multiples of 8"):
+        doubleconv_fused.plan(1, 4, 4, 8, 12, torch.bfloat16)
+    assert doubleconv_fused.plan(1, 4, 4, 16, 16,
+                                 torch.bfloat16).route == "wgmma"
+    assert doubleconv_fused.plan(1, 4, 4, 8, 16,
+                                 torch.bfloat16).route == "generic"
+    reset_launches()
+    doubleconv_fused.fused_conv3x3(torch.zeros(1, 4, 4, 16),
+                                   torch.zeros(16, 16, 3, 3))
+    assert doubleconv_fused.launches == 0
+    assert doubleconv_fused.launches_by_route == {"wgmma": 0, "generic": 0}

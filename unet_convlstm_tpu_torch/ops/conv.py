@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.dtypes import DEFAULT_POLICY, Policy
+from ..core.dtypes import DEFAULT_POLICY, Policy, full_fp32
 
 Padding = Union[str, int, Sequence[Tuple[int, int]]]
 
@@ -76,6 +76,28 @@ class ConvTranspose2d(nn.Module):
 # Conv2d
 # ---------------------------------------------------------------------------
 
+def _backward_in_fp32(y: torch.Tensor, policy: Policy) -> torch.Tensor:
+    """Under an f32 policy, run the backward of the convolution that made
+    ``y`` with TF32 off, as its forward ran: autograd runs it after the
+    forward has left ``policy.precision()``, under torch's global flags
+    (cuDNN's TF32 is on by default)."""
+    if policy.compute_dtype != torch.float32 or y.grad_fn is None:
+        return y
+    entered = []
+
+    def enter(grad):
+        entered.append(full_fp32())
+        entered[-1].__enter__()
+
+    def leave(grad_inputs, grad_outputs):
+        entered.pop().__exit__(None, None, None)
+
+    # a hook on y runs just before its node, ahead of the node's pre-hooks
+    y.register_hook(enter)
+    y.grad_fn.register_hook(leave)
+    return y
+
+
 def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
     out = -(-size // stride)
     total = max((out - 1) * stride + k - size, 0)
@@ -110,7 +132,8 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
         xt = F.pad(xt, (pw0, pw1, ph0, ph1))
         pad_arg = (0, 0)
     with policy.precision():
-        y = _to_nhwc(F.conv2d(xt, w, None, stride, pad_arg))
+        y = _backward_in_fp32(F.conv2d(xt, w, None, stride, pad_arg), policy)
+    y = _to_nhwc(y)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
@@ -128,7 +151,9 @@ def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,
     w = policy.cast_param(weight)
     x = policy.cast_input(x)
     with policy.precision():
-        y = _to_nhwc(F.conv_transpose2d(_to_nchw(x), w, None, stride))
+        y = _backward_in_fp32(F.conv_transpose2d(_to_nchw(x), w, None, stride),
+                              policy)
+    y = _to_nhwc(y)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y

@@ -2,7 +2,8 @@
 version (counterpart of unet_convlstm_tpu/ops/pallas/).
 
 Each wrapper counts its kernel launches in a plain integer on its module;
-``launch_counts`` reads them and ``reset_launches`` sets them to 0.
+``launch_counts`` reads them and ``reset_launches`` sets them to 0, with
+the fused conv's count by route (``doubleconv_fused.launches_by_route``).
 """
 
 from __future__ import annotations
@@ -31,3 +32,5 @@ def launch_counts() -> Dict[str, int]:
 def reset_launches() -> None:
     for m, attr in KERNEL_COUNTERS.values():
         setattr(m, attr, 0)
+    for route in doubleconv_fused.launches_by_route:
+        doubleconv_fused.launches_by_route[route] = 0

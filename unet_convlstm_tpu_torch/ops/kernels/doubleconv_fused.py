@@ -9,8 +9,12 @@ unet_convlstm_tpu/ops/pallas/doubleconv_fused.py).
 
 The halo of the SAME padding is zero in z, not in x. The kernel
 (``csrc/conv3x3_fused.cu``) is an implicit GEMM that applies the prologue
-while it stages x and reduces the stats in its epilogue, so a DoubleConv's
-second conv reads the first one's raw output once and nothing else.
+to x once it is staged and reduces the stats in its epilogue, so a
+DoubleConv's second conv reads the first one's raw output once and nothing
+else. ``plan`` picks its route from the shape alone, before the launch:
+the Hopper route (a TMA/cp.async ring feeding ``wgmma``, split K where the
+output tiles are fewer than the SMs) for the bf16 shapes it takes, the
+generic route (WMMA or FMA tiles) for f32 and the rest.
 
 ``fused_conv3x3`` runs one autograd node on every device: its forward is
 the plain version on the CPU and the kernel on the card, which it launches
@@ -26,6 +30,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -34,14 +40,75 @@ import torch.nn.functional as F
 from ...core.dtypes import full_fp32
 from . import build
 
-launches = 0   # kernel launches since the last ops.kernels.reset_launches()
+launches = 0   # fused_conv3x3 calls on the card since reset_launches()
+ROUTES = ("wgmma", "generic")
+launches_by_route = dict.fromkeys(ROUTES, 0)   # the same calls, by route
 
 _DTYPES = (torch.bfloat16, torch.float32)
+SMS = 132                     # an H100 SXM's streaming multiprocessors
+BM = 128                      # output pixels a block of either route takes
+WORKSPACE_CAP = 32 << 20      # bytes of f32 split-K partials at most
+MIN_CHUNKS_PER_SPLIT = 4      # K chunks a split walks at least
+# the tiles csrc/conv3x3_fused.cu instantiates, (BN, BK)
+_WGMMA_TILES = {(bn, bk) for bn in (16, 32, 64, 128) for bk in (16, 32, 64)}
+
+
+def _stages(bk: int) -> int:
+    """The ring's stages (Cfg::STAGES): 3 of 128-byte rows, else 4."""
+    return 3 if bk == 64 else 4
 
 
 def kernel_supports(cin: int, cout: int, dtype: torch.dtype) -> bool:
     """The kernel's own shape guard: 16-byte channel vectors."""
     return cin % 8 == 0 and cout % 8 == 0 and dtype in _DTYPES
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one call runs on the card: the route, the output tile (bm pixels
+    by bn channels), the K chunk bk, the ring's stages, the K splits and
+    the blocks of the main kernel."""
+    route: str
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    splits: int
+    blocks: int
+    workspace_bytes: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=1024)   # a pure function of a few ints
+def plan(n: int, h: int, w: int, cin: int, cout: int,
+         dtype: torch.dtype) -> Plan:
+    """The route and tiling of a [n, h, w, cin] -> cout conv, from the shape
+    alone. The wgmma route takes bf16 with Cin % 16 == 0 and Cout 16, 32,
+    64 or a multiple of 128; the tile is Cout wide up to 128 channels. A
+    grid of fewer tiles than SMs splits K over blocks, to about two blocks
+    per SM, as far as MIN_CHUNKS_PER_SPLIT and WORKSPACE_CAP allow."""
+    if not kernel_supports(cin, cout, dtype):
+        raise ValueError(f"fused conv3x3 kernel takes bf16/f32 with Cin and "
+                         f"Cout multiples of 8, got {dtype} {cin}->{cout}")
+    m = n * h * w
+    if dtype != torch.bfloat16 or cin % 16 \
+            or not (cout in (16, 32, 64) or cout % 128 == 0):
+        return Plan("generic", BM, 64, 32, 1, 1,
+                    _cdiv(m, BM) * _cdiv(cout, 64), 0)
+    bk = 64 if cin % 64 == 0 else 32 if cin % 32 == 0 else 16
+    bn = min(cout, 128)
+    tiles = _cdiv(m, BM) * (cout // bn)
+    splits = 1
+    if 0 < tiles < SMS:
+        splits = max(1, min(2 * SMS // tiles,
+                            9 * cin // bk // MIN_CHUNKS_PER_SPLIT))
+        while splits > 1 and splits * m * cout * 4 > WORKSPACE_CAP:
+            splits -= 1
+    return Plan("wgmma", BM, bn, bk, _stages(bk), splits, tiles * splits,
+                4 * splits * m * cout if splits > 1 else 0)
 
 
 def fused_conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
@@ -68,12 +135,21 @@ def fused_conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 def _lib():
-    fn = build.load("conv3x3_fused").conv3x3_fused_fwd
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-    return fn
+    lib = build.load("conv3x3_fused")
+    if lib.conv3x3_fused_fwd.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.conv3x3_fused_fwd.restype = I
+        lib.conv3x3_fused_fwd.argtypes = [P] * 8 + [I] * 7 + [P]
+        lib.conv3x3_fused_wgmma.restype = I
+        lib.conv3x3_fused_wgmma.argtypes = [P, P, I] + [P] * 8 + [I] * 9 + [
+            P]
+    return lib
+
+
+# conv3x3_fused_wgmma's own error codes (CUDA's are positive)
+_WGMMA_ERRORS = {-1: "no cuTensorMapEncodeTiled in the CUDA driver",
+                 -2: "the weight's TMA tensor map was refused",
+                 -3: "a tile the source does not instantiate"}
 
 
 def _check_vec(name: str, v: torch.Tensor, n: int, device) -> None:
@@ -94,9 +170,7 @@ def _launch(x, w, b, pre_inv, pre_shift):
                          f"NHWC and w {tuple(w.shape)} [Cout, Cin, 3, 3]")
     n, h, wd, cin = x.shape
     cout = w.shape[0]
-    if not kernel_supports(cin, cout, x.dtype):
-        raise ValueError(f"fused conv3x3 kernel takes bf16/f32 with Cin and "
-                         f"Cout multiples of 8, got {x.dtype} {cin}->{cout}")
+    p = plan(n, h, wd, cin, cout, x.dtype)   # raises on what it cannot take
     if w.device != x.device:
         raise ValueError("fused conv3x3 kernel: w is on another device")
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -112,22 +186,43 @@ def _launch(x, w, b, pre_inv, pre_shift):
     if prologue:
         _check_vec("pre_inv", pre_inv, cin, x.device)
         _check_vec("pre_shift", pre_shift, cin, x.device)
-    # the kernel's K-major weight: row (3*kh + kw)*Cin + ci, column co
-    wk = w.to(x.dtype).permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
-    fn = _lib()
-    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    s = torch.zeros(cout, dtype=torch.float32, device=x.device)
-    q = torch.zeros(cout, dtype=torch.float32, device=x.device)
-    rc = fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(),
-            pre_inv.data_ptr() if prologue else None,
-            pre_shift.data_ptr() if prologue else None,
-            y.data_ptr(), s.data_ptr(), q.data_ptr(),
-            n, h, wd, cin, cout, int(prologue),
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _lib()
+    dev = x.device
+    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    inv_ptr = pre_inv.data_ptr() if prologue else None
+    shift_ptr = pre_shift.data_ptr() if prologue else None
+    if p.route == "wgmma":
+        # one call: the weight's K-major copy and the zeroed sums (one prep
+        # kernel, which also runs on an empty batch), the main kernel, and
+        # the split-K pass where splits > 1
+        if w.dtype not in _DTYPES or not w.is_contiguous():
+            w = w.to(x.dtype).contiguous()
+        wt = torch.empty((cout, 9 * cin), dtype=torch.bfloat16, device=dev)
+        s = torch.empty(cout, dtype=torch.float32, device=dev)
+        q = torch.empty(cout, dtype=torch.float32, device=dev)
+        ws = torch.empty(p.workspace_bytes // 4, dtype=torch.float32,
+                         device=dev) if p.splits > 1 else None
+        rc = lib.conv3x3_fused_wgmma(
+            x.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16),
+            b.data_ptr(), inv_ptr, shift_ptr, wt.data_ptr(), y.data_ptr(),
+            s.data_ptr(), q.data_ptr(), None if ws is None else ws.data_ptr(),
+            n, h, wd, cin, cout, int(prologue), p.bn, p.bk, p.splits, stream)
+    else:
+        # the kernel's K-major weight: row (3*kh + kw)*Cin + ci, column co
+        wk = w.to(x.dtype).permute(2, 3, 1, 0).reshape(9 * cin,
+                                                       cout).contiguous()
+        s = torch.zeros(cout, dtype=torch.float32, device=dev)
+        q = torch.zeros(cout, dtype=torch.float32, device=dev)
+        rc = lib.conv3x3_fused_fwd(
+            x.data_ptr(), wk.data_ptr(), b.data_ptr(), inv_ptr, shift_ptr,
+            y.data_ptr(), s.data_ptr(), q.data_ptr(), n, h, wd, cin, cout,
+            int(prologue), int(x.dtype == torch.bfloat16), stream)
     launches += 1
+    launches_by_route[p.route] += 1
     if rc != 0:
-        raise RuntimeError(f"conv3x3_fused_fwd launch failed: CUDA error {rc}")
+        raise RuntimeError(f"conv3x3_fused ({p.route} route, {p}) failed: "
+                           f"{_WGMMA_ERRORS.get(rc, f'CUDA error {rc}')}")
     return y, s, q
 
 

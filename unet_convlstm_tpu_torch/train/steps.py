@@ -15,12 +15,6 @@ that is on.
 ``apply_fn(model, x_seq, train=...)`` → (y_seq, state, new_bn_stats), with
 the policy and kernel flags bound (``functools.partial`` of the registry's
 apply). Batches are raw NHWC tensors [B, T, H, W, C] on the model's device.
-
-Under the FP32 policy the forward's convolutions run at full f32, but
-autograd runs the library convolutions' backward after the forward has
-left the policy's context, under torch's global TF32 flags (cuDNN's is on
-by default). For full-f32 gradients on the card, call the step inside
-``core.dtypes.full_fp32()``.
 """
 
 from __future__ import annotations
