@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing JSON lines; any failure exits non-zero:
+It runs the phases below, each printing JSON lines; any failure exits
+non-zero:
 
 1. device   — the card's name and power limit (nvidia-smi), the build of
               every kernel from ``unet_convlstm_tpu_torch/csrc``, and
@@ -55,12 +56,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
               sequences, 300 steps): launch counts, the loss per chunk
               finite and falling.
 
-Phase 2 also holds the fused MC sampling kernels (K4 with its Philox
-uniforms, K5 with given uniforms) against their plain versions at one view
-(65,536 lanes) and at the MC main path's launch (16 rounds of a view), the
-channel statistics kernel (K6) at the probe's activation and at ragged
-shapes, and the chained gather kernel (K7) at the gather probe's five
-shapes and on negative, out-of-range values.
+Phase 2 also holds the gate update forward (K1) where its vector route does
+not go (C = 12, a gates view 2 bytes off a 16-byte boundary), with f32
+gates, zero rows and gates holding +-inf and NaN; the fused MC sampling
+kernels (K4 with its Philox uniforms, K5 with given uniforms) against their
+plain versions at one view (65,536 lanes) and at the MC main path's launch
+(16 rounds of a view), the channel statistics kernel (K6) at the probe's
+activation and at ragged shapes, and the chained gather kernel (K7) at the
+gather probe's five shapes, on negative, out-of-range values, where the
+last tile of lines is short (in both shared-memory layouts) and at the
+longest line it takes along each axis, beside its latency floor (one
+block's 64 dependent shared loads). The main-path phases count K1's
+launches by route (all on the vector route) as they do K2's.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, {"kernels": [...]}, and {"ok": true, "device": {"platform":
@@ -251,16 +258,22 @@ def emit(obj) -> None:
 
 
 def path_counts():
-    """``launch_counts()`` with the fused conv's calls by route."""
+    """``launch_counts()`` with the gate update forward's and the fused
+    conv's calls by route."""
     return dict(launch_counts(), **{
+        f"gate_update_{route}": n
+        for route, n in convlstm_fused.launches_by_route.items()}, **{
         f"conv3x3_fused_{route}": n
         for route, n in doubleconv_fused.launches_by_route.items()})
 
 
-def on_wgmma(expect):
-    """An expectation of ``path_counts()``: every fused-conv call of a bf16
-    main path takes the wgmma route."""
-    return dict(expect, conv3x3_fused_wgmma=expect["conv3x3_fused"],
+def on_main_routes(expect):
+    """An expectation of ``path_counts()``: every gate update of a main path
+    takes the vector route, and every fused-conv call of a bf16 main path
+    the wgmma route."""
+    return dict(expect, gate_update_vector=expect["gate_update"],
+                gate_update_scalar=0,
+                conv3x3_fused_wgmma=expect["conv3x3_fused"],
                 conv3x3_fused_generic=0)
 
 
@@ -357,9 +370,39 @@ def _total():
     return dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
 
 
+def _k1_errors(gates, c):
+    """(ok, |dh| max, |dc| / (1 + |c|) max, bits equal in a rerun) of K1
+    forward against its plain version with K1_TOL, over the finite plain
+    outputs; the non-finite ones must be the same (NaN where NaN, the same
+    inf)."""
+    h_k, c_k = convlstm_fused.fused_gate_update(gates, c)
+    h_k2, c_k2 = convlstm_fused.fused_gate_update(gates, c)
+    h_p, c_p = convlstm_fused.gate_update_plain(gates, c)
+    torch.cuda.synchronize()
+    rerun = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                for a, b in ((h_k, h_k2), (c_k, c_k2)))
+    hk, hp = h_k.float(), h_p.float()
+    dh = dc = 0.0
+    same = all(torch.equal(torch.isnan(k), torch.isnan(p))
+               and torch.equal(k[torch.isinf(p)], p[torch.isinf(p)])
+               for k, p in ((hk, hp), (c_k, c_p)))
+    fin = torch.isfinite(hp) & torch.isfinite(c_p)
+    if fin.any():
+        dh = (hk - hp).abs()[fin].max().item()
+        dc = ((c_k - c_p).abs() / (1 + c_p.abs()))[fin].max().item()
+    return same and dh <= 2 ** -8 and dc <= 1e-5, dh, dc, rerun
+
+
+def _k1_plan(gates, c):
+    p = convlstm_fused.plan_for(gates, c)
+    return {"route": p.route, "plan": {"vec": p.vec, "blocks": p.blocks}}
+
+
 def check_k1(gen, levels, batch, per):
     """K1 forward at the three recurrence levels of a pass: checks and
-    times per pass (``per``: request or step)."""
+    times per pass (``per``: request or step). ``ms`` rotates its inputs
+    past the L2 cache; ``ms_inputs_in_l2`` reuses one set, as a path whose
+    gates come straight from the gate conv may find them."""
     total = _total()
     for level, C, side, launches in levels:
         rows = batch * side * side
@@ -370,21 +413,22 @@ def check_k1(gen, levels, batch, per):
                     torch.randn(rows, C, device=DEV, generator=gen))
 
         gates, c = make()
-        h_k, c_k = convlstm_fused.fused_gate_update(gates, c)
-        h_p, c_p = convlstm_fused.gate_update_plain(gates, c)
-        torch.cuda.synchronize()
-        dh = (h_k.float() - h_p.float()).abs().max().item()
-        dc = ((c_k - c_p).abs() / (1 + c_p.abs())).max().item()
-        ok = dh <= 2 ** -8 and dc <= 1e-5
+        ok, dh, dc, rerun = _k1_errors(gates, c)
+        plan = _k1_plan(gates, c)
+        ok = ok and rerun and plan["route"] == "vector"
         nbytes = rows * C * (4 * 2 + 4 + 2 + 4)
         args = copies(make, nbytes)
         ms = device_ms(convlstm_fused.fused_gate_update, args)
         plain_ms = device_ms(convlstm_fused.gate_update_plain, args)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         emit({"phase": "kernel", "kernel": "gate_update", "level": level,
-              "rows": rows, "C": C, "dtype": "bfloat16", "h_abs_err": dh,
-              "c_rel_err": dc, "ok": ok, "ms": ms,
+              "rows": rows, "C": C, "MB": nbytes / 1e6, "dtype": "bfloat16",
+              **plan, "h_abs_err": dh, "c_rel_err": dc,
+              "bit_equal_rerun": rerun, "ok": ok, "ms": ms,
+              "ms_inputs_in_l2": device_ms(convlstm_fused.fused_gate_update,
+                                           args[:1]),
               "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "pct_of_bound": 100 * bound_ms / ms,
               f"launches_per_{per}": launches})
         if not ok:
             raise AssertionError(f"gate_update disagrees at {level}")
@@ -393,6 +437,55 @@ def check_k1(gen, levels, batch, per):
         total["bound_ms"] += bound_ms * launches
         total["max_abs_err"] = max(total["max_abs_err"], dh, dc)
     return total
+
+
+def check_k1_edges(gen):
+    """K1 forward where the vector route does not go, or goes with other
+    data: C = 12 and a gates view 2 bytes off a 16-byte boundary (the scalar
+    route), f32 gates (4-channel vectors), zero rows (no launch), and gates
+    holding +-inf and NaN, which must come out as the plain version's."""
+    def r(*shape):
+        return torch.randn(*shape, device=DEV, generator=gen)
+
+    buf = (r(1024 * 4 * 64 + 1) * 2).to(torch.bfloat16)
+    odd = (r(1024, 4 * 64) * 2).to(torch.bfloat16)
+    odd[0, :8] = float("inf")
+    odd[1, 64:72] = -float("inf")
+    odd[2, 128:136] = float("nan")
+    odd[3, 3] = float("nan")
+    odd[4, 200] = float("inf")
+    odd[5, 70] = -float("inf")
+    cases = [("c12_scalar", (r(1000, 48) * 2).to(torch.bfloat16),
+              r(1000, 12), "scalar"),
+             ("offset_view_scalar", buf[1:].view(1024, 4 * 64), r(1024, 64),
+              "scalar"),
+             ("f32_gates", r(4096, 4 * 256) * 2, r(4096, 256), "vector"),
+             ("inf_nan_gates", odd, r(1024, 64), "vector")]
+    worst = 0.0
+    for name, gates, c, route in cases:
+        ok, dh, dc, rerun = _k1_errors(gates, c)
+        plan = _k1_plan(gates, c)
+        ok = ok and rerun and plan["route"] == route
+        line = {"phase": "kernel", "kernel": "gate_update", "case": name,
+                "rows": c.shape[0], "C": c.shape[1],
+                "dtype": str(gates.dtype).split(".")[-1], **plan,
+                "h_abs_err": dh, "c_rel_err": dc, "bit_equal_rerun": rerun,
+                "ok": ok}
+        emit(line)
+        if not ok:
+            raise AssertionError(f"gate_update edge case failed: {line}")
+        worst = max(worst, dh, dc)
+    before = convlstm_fused.launches
+    h, c_next = convlstm_fused.fused_gate_update(
+        torch.empty(0, 4 * 64, device=DEV, dtype=torch.bfloat16),
+        torch.empty(0, 64, device=DEV))
+    ok = (h.shape == (0, 64) and c_next.shape == (0, 64)
+          and convlstm_fused.launches == before)
+    emit({"phase": "kernel", "kernel": "gate_update", "case": "zero_rows",
+          "launched": convlstm_fused.launches - before, "ok": ok})
+    if not ok:
+        raise AssertionError("gate_update: zero rows")
+    return worst
 
 
 def _k1_bwd_errors(args):
@@ -831,11 +924,33 @@ def _launch_floor_ms() -> float:
     return device_ms(lambda: torch.cuda._sleep(0), [()], n=200)
 
 
+def _latency_floor_ms(reps: int) -> float:
+    """Device time of the one-block chase beside K7 (``reps`` dependent
+    shared loads a lane), launched back to back: the least time a chain of
+    ``reps`` links takes, launch included."""
+    out = torch.zeros(32, dtype=torch.int32, device=DEV)
+    ms = device_ms(lambda: chained_gather.latency_floor(reps, out), [()],
+                   n=200)
+    if out.tolist() != list(range(32)):
+        raise AssertionError("chained_gather_latency_floor: wrong chase")
+    return ms
+
+
+def _k7_plan(shape, axis):
+    p = chained_gather.plan(*shape, axis)
+    return {"plan": {"lines": p.lines, "splits": p.splits, "chunk": p.chunk,
+                     "threads": p.threads, "pair": p.pair,
+                     "smem_bytes": p.smem_bytes, "blocks": p.blocks}}
+
+
 def check_k7(gen):
-    """K7 at the gather probe's five shapes, reps 64 (timed) and 1, and on
-    negative, out-of-range values (the floor modulo): bit-equal."""
+    """K7 at the gather probe's five shapes, reps 64 (timed) and 1, on
+    negative, out-of-range values (the floor modulo), where the last tile
+    holds fewer lines than the plan's full tile (in both layouts), and at
+    the longest line the wrapper takes along each axis: bit-equal."""
     variants = []
     floor_ms = _launch_floor_ms()
+    latency_ms = _latency_floor_ms(probe_gather.REPS)
     for name, shape, axis in probe_gather.VARIANTS:
         x_np, idx_np = probe_gather.variant_inputs(shape, axis)
         x = torch.from_numpy(x_np).to(DEV)
@@ -870,7 +985,8 @@ def check_k7(gen):
                     [(a, i.long()) for a, i in sets]),
                 "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "launch_floor_ms": floor_ms, "max_abs_err": 0.0,
+                "launch_floor_ms": floor_ms, "latency_floor_ms": latency_ms,
+                **_k7_plan(shape, axis), "max_abs_err": 0.0,
                 "ok": all(equal.values())}
         emit(line)
         variants.append(line)
@@ -890,6 +1006,49 @@ def check_k7(gen):
           "bit_equal_by_axis": negative, "ok": all(negative.values())})
     if not all(negative.values()):
         raise AssertionError("chained_gather: floor modulo case disagrees")
+    # a last tile of 1 line (of 16) along axis 1 and of 4 along axis 0: most
+    # of its blocks have no chain
+    for shape, axis in (((17, 128), 1), ((512, 20), 0)):
+        n = shape[axis]
+        x = torch.rand(*shape, device=DEV, generator=gen) * n
+        idx = torch.randint(0, n, shape, device=DEV, generator=gen,
+                            dtype=torch.int32)
+        equal = {}
+        for pair in (True, False):
+            p = chained_gather.plan(*shape, axis, pair)
+            for reps in (probe_gather.REPS, 1):
+                equal[f"pair={pair} reps={reps}"] = torch.equal(
+                    chained_gather._launch(x, idx, axis, reps, p),
+                    chained_gather.chained_gather_plain(x, idx, axis, reps))
+        line = {"phase": "kernel", "kernel": "chained_gather",
+                "variant": "short last tile", "shape": list(shape),
+                "axis": axis, **_k7_plan(shape, axis), "bit_equal": equal,
+                "ok": all(equal.values())}
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"chained_gather disagrees: {line}")
+    # the longest line the wrapper takes: 4 (n + 1) bytes within a block's
+    # shared memory (x through L1, next alone in shared memory)
+    longest = chained_gather._SMEM_BYTES // 4 - 1
+    for shape, axis in (((4, longest), 1), ((longest, 16), 0)):
+        n = shape[axis]
+        x = torch.rand(*shape, device=DEV, generator=gen) * n
+        idx = torch.randint(0, n, shape, device=DEV, generator=gen,
+                            dtype=torch.int32)
+        equal = {str(reps): torch.equal(
+            chained_gather.chained_gather(x, idx, axis, reps),
+            chained_gather.chained_gather_plain(x, idx, axis, reps))
+            for reps in (probe_gather.REPS, 1)}
+        line = {"phase": "kernel", "kernel": "chained_gather",
+                "variant": "longest line", "shape": list(shape),
+                "axis": axis,
+                **_k7_plan(shape, axis), "bit_equal": equal,
+                "ms": device_ms(lambda a, i: chained_gather.chained_gather(
+                    a, i, axis, probe_gather.REPS), [(x, idx)] * 2),
+                "ok": all(equal.values())}
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"chained_gather disagrees: {line}")
     return variants
 
 
@@ -961,7 +1120,7 @@ def phase_serve(workdir: str):
             outs.append(pred.predict(sid, frames[s, r]))
     counts = path_counts()
     requests = SESSIONS * REQUESTS_PER_SESSION
-    expect = on_wgmma({"gate_update": K1_PER_REQUEST * requests,
+    expect = on_main_routes({"gate_update": K1_PER_REQUEST * requests,
                        "gate_update_bwd": 0,
                        "conv3x3_fused": K2_PER_REQUEST * requests,
                        **NO_LAUNCHES})
@@ -1250,7 +1409,7 @@ def phase_train(tr: _Train):
     losses = [float(step(tr.model, opt, tr.x, tr.y)[0])
               for _ in range(TRAIN_STEPS)]
     counts = path_counts()
-    expect = on_wgmma({"gate_update": K1_PER_STEP * TRAIN_STEPS,
+    expect = on_main_routes({"gate_update": K1_PER_STEP * TRAIN_STEPS,
                        "gate_update_bwd": K1_PER_STEP * TRAIN_STEPS,
                        "conv3x3_fused": K2_PER_STEP * TRAIN_STEPS,
                        **NO_LAUNCHES})
@@ -1668,10 +1827,10 @@ def phase_fit(workdir: str):
     steps = int(cfg.train_frac * FIT_SAMPLES) // cfg.batch_size
     evals = math.ceil((FIT_SAMPLES - int(cfg.train_frac * FIT_SAMPLES))
                       / cfg.batch_size)
-    per_epoch = on_wgmma({"gate_update": (steps + evals) * K1_PER_STEP,
-                          "gate_update_bwd": steps * K1_PER_STEP,
-                          "conv3x3_fused": (steps + evals) * K2_PER_STEP,
-                          **NO_LAUNCHES})
+    per_epoch = on_main_routes({
+        "gate_update": (steps + evals) * K1_PER_STEP,
+        "gate_update_bwd": steps * K1_PER_STEP,
+        "conv3x3_fused": (steps + evals) * K2_PER_STEP, **NO_LAUNCHES})
     last = os.path.join(ck, "custom_last.pt")
     runs = {}
     for tag, flags, n_epochs in (("train", [], FIT_EPOCHS),
@@ -1708,7 +1867,7 @@ def phase_fit(workdir: str):
     torch.cuda.synchronize()
     reset_launches()
     y = pred.predict(sid, frame)
-    serve = {"launches": path_counts(), "expected": on_wgmma(dict(
+    serve = {"launches": path_counts(), "expected": on_main_routes(dict(
         NO_LAUNCHES, gate_update=sum(n for *_, n in k1_levels(TBASE, THW, 1)),
         gate_update_bwd=0, conv3x3_fused=K2_PER_STEP)),
         "shape": list(y.shape), "finite": bool(np.isfinite(y).all())}
@@ -1804,9 +1963,10 @@ def phase_overfit(npz: str, workdir: str):
     losses = [float(ln.split("loss")[1]) for ln in out.splitlines()
               if ln.startswith("iter ")]
     iters = 100 * len(losses)
-    expect = on_wgmma(dict(NO_LAUNCHES, gate_update=iters * K1_PER_STEP,
-                           gate_update_bwd=iters * K1_PER_STEP,
-                           conv3x3_fused=iters * K2_PER_STEP))
+    expect = on_main_routes(dict(NO_LAUNCHES,
+                                 gate_update=iters * K1_PER_STEP,
+                                 gate_update_bwd=iters * K1_PER_STEP,
+                                 conv3x3_fused=iters * K2_PER_STEP))
     ok = (code in (0, 1)
           and (len(losses) == OVERFIT_ITERS // 100 or code == 0)
           and all(math.isfinite(v) for v in losses)
@@ -1849,6 +2009,7 @@ def main() -> int:
                      "the lowest"})
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     k1 = check_k1(gen, K1_LEVELS, B, "request")
+    k1_edges = check_k1_edges(gen)
     k2 = check_k2(gen, K2_CONVS, B * T, "request", serving=True)
     k2_b1 = check_k2_edges(gen)
     k1_bwd = check_k1_bwd(gen)
@@ -1892,7 +2053,11 @@ def main() -> int:
          "replaces": "unet_convlstm_tpu/ops/pallas/convlstm_fused.py:44",
          "launches": counts["gate_update"],
          "launches_per_request": K1_PER_REQUEST,
-         "max_abs_err": max(k1["max_abs_err"], k1_train["max_abs_err"]),
+         "launches_by_route": {r: counts[f"gate_update_{r}"]
+                               for r in convlstm_fused.ROUTES},
+         "redesigned": 6,
+         "max_abs_err": max(k1["max_abs_err"], k1_train["max_abs_err"],
+                            k1_edges),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "per": per, "train": train_part("gate_update", k1_train)},
@@ -1969,7 +2134,9 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "library": "torch.gather, one link (reps 1)",
+        "redesigned": 6, "plan": head["plan"],
         "launch_floor_ms": head["launch_floor_ms"],
+        "latency_floor_ms": head["latency_floor_ms"],
         "per": f"one launch of variant C, (512, 128) axis 0, reps "
                f"{probe_gather.REPS}",
         "variants": [{k: v[k] for k in ("variant", "ms", "plain_ms",

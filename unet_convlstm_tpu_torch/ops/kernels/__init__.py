@@ -3,7 +3,9 @@ version (counterpart of unet_convlstm_tpu/ops/pallas/).
 
 Each wrapper counts its kernel launches in a plain integer on its module;
 ``launch_counts`` reads them and ``reset_launches`` sets them to 0, with
-the fused conv's count by route (``doubleconv_fused.launches_by_route``).
+the gate update forward's and the fused conv's counts by route
+(``convlstm_fused.launches_by_route``,
+``doubleconv_fused.launches_by_route``).
 """
 
 from __future__ import annotations
@@ -32,5 +34,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launches() -> None:
     for m, attr in KERNEL_COUNTERS.values():
         setattr(m, attr, 0)
-    for route in doubleconv_fused.launches_by_route:
-        doubleconv_fused.launches_by_route[route] = 0
+    for by_route in (convlstm_fused.launches_by_route,
+                     doubleconv_fused.launches_by_route):
+        for route in by_route:
+            by_route[route] = 0

@@ -94,6 +94,34 @@ def build_all() -> Dict[str, float]:
     return seconds
 
 
+def load_variant(name: str, edits) -> ctypes.CDLL:
+    """A library built from ``csrc/<name>.cu`` with ``edits`` applied, each
+    (old, new) replacing text that occurs exactly once: an alternative
+    design timed against the shipped one (``probes.kernel_ab``). Built in
+    ``_build/variants/<hash>/`` with the same flags, its ptxas report in
+    ``<name>.log`` beside it."""
+    text = sources()[name].read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"csrc/{name}.cu: {old!r} occurs "
+                             f"{text.count(old)} times, not once")
+        text = text.replace(old, new)
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + text).encode())
+    out = BUILD_ROOT / "variants" / h.hexdigest()[:16]
+    lib = out / f"lib{name}.so"
+    if not lib.exists():
+        out.mkdir(parents=True, exist_ok=True)
+        (out / f"{name}.cu").write_text(text)
+        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib),
+                            str(out / f"{name}.cu")],
+                           capture_output=True, text=True)
+        (out / f"{name}.log").write_text(r.stdout + r.stderr)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc of a variant of {name}.cu failed:\n"
+                               f"{r.stderr}")
+    return ctypes.CDLL(str(lib))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``lib<name>.so``, built first if needed."""
     with _lock:

@@ -6,9 +6,12 @@ PyTorch versions (counterpart of unet_convlstm_tpu/ops/pallas/convlstm_fused.py)
 
 in f32; h' comes back in the gates' dtype, c' in f32. The forward kernel
 (``csrc/gate_update.cu``) reads each row's 4C gate values once and keeps
-every intermediate in registers. As the JAX custom VJP, the autograd node
-saves only (gates, c) and the backward kernel (``csrc/gate_update_bwd.cu``)
-recomputes the activations from them.
+every intermediate in registers. ``gate_update_plan`` picks its route from
+the shape, dtype and alignment alone, before the launch: the vector route
+(16-byte vectors of 8 bf16 or 4 f32 channels) where C and every base
+address allow it, else the scalar route. As the JAX custom VJP, the
+autograd node saves only (gates, c) and the backward kernel
+(``csrc/gate_update_bwd.cu``) recomputes the activations from them.
 
 ``fused_gate_update`` runs the same autograd node on every device: on the
 CPU with the plain forward and backward, on the card with the kernels,
@@ -20,6 +23,8 @@ and the wrapper makes no copy of the 4C-wide tensor.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -29,6 +34,47 @@ from . import build
 # kernel launches since the last ops.kernels.reset_launches()
 launches = 0        # forward
 bwd_launches = 0    # backward
+ROUTES = ("vector", "scalar")
+launches_by_route = dict.fromkeys(ROUTES, 0)   # the forward's, by route
+
+SMS = 132                 # an H100 SXM's streaming multiprocessors
+BLOCKS_PER_SM = 4         # the vector kernel's __launch_bounds__(256, 4)
+THREADS = 256             # a block of either route (csrc: kThreads)
+SCALAR_BLOCKS_PER_SM = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one forward call runs on the card: the route, the channels a
+    thread takes as one 16-byte vector (1 on the scalar route), and the
+    launch's blocks of THREADS threads (the kernels stride over what one
+    pass of the grid does not cover)."""
+    route: str
+    vec: int
+    blocks: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)    # a pure function of a few ints
+def gate_update_plan(rows: int, C: int, dtype: torch.dtype,
+                     aligned: bool) -> Plan:
+    """The forward's route and launch for gates [rows, 4C] of ``dtype``.
+
+    The vector route takes C a multiple of the vector (8 bf16 channels or 4
+    f32 ones, 16 bytes) with ``aligned`` base addresses (gates and c on
+    16-byte boundaries) and fewer than 2^31 vectors, one vector a thread,
+    at most four blocks an SM (one wave); anything else takes the scalar
+    route, one element a thread."""
+    vec = 8 if dtype == torch.bfloat16 else 4
+    total = rows * C
+    if C % vec or not aligned or total // vec >= 2 ** 31:
+        return Plan("scalar", 1,
+                    min(_cdiv(total, THREADS), SMS * SCALAR_BLOCKS_PER_SM))
+    return Plan("vector", vec,
+                min(_cdiv(total // vec, THREADS), SMS * BLOCKS_PER_SM))
 
 
 def gate_update_plain(gates: torch.Tensor, c: torch.Tensor):
@@ -71,15 +117,16 @@ def gate_update_bwd_plain(gates: torch.Tensor, c: torch.Tensor,
     return dgates.to(gates.dtype), dc_next * f
 
 
-def _lib(source: str, symbol: str, n_ptr: int):
+def _lib(source: str, symbol: str, n_ptr: int, n_plan: int = 0):
     """The C entry point ``symbol`` of ``csrc/<source>.cu``: ``n_ptr``
-    pointers, then rows, C, is_bf16 and the stream."""
+    pointers, then rows, C, is_bf16, ``n_plan`` ints of the plan and the
+    stream."""
     fn = getattr(build.load(source), symbol)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_longlong,
-                                                   ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [
+            ctypes.c_longlong] + [ctypes.c_int] * (2 + n_plan) + [
+            ctypes.c_void_p]
     return fn
 
 
@@ -102,17 +149,31 @@ def _check(gates: torch.Tensor, c: torch.Tensor) -> int:
     return C
 
 
+def plan_for(gates: torch.Tensor, c: torch.Tensor) -> Plan:
+    """The plan of one forward call on these tensors (h and c' are fresh
+    allocations, 16-byte aligned)."""
+    C = c.shape[-1]
+    rows = c.numel() // C if C else 0
+    return gate_update_plan(rows, C, gates.dtype, gates.data_ptr() % 16 == 0
+                            and c.data_ptr() % 16 == 0)
+
+
 def _launch(gates: torch.Tensor, c: torch.Tensor):
     global launches
     C = _check(gates, c)
-    fn = _lib("gate_update", "gate_update_fwd", 4)
     h = torch.empty(c.shape, dtype=gates.dtype, device=c.device)
     c_next = torch.empty_like(c)
     rows = c.numel() // C if C else 0
+    p = plan_for(gates, c)
+    if p.blocks == 0:                 # nothing to compute: no launch
+        return h, c_next
+    fn = _lib("gate_update", "gate_update_fwd", 4, n_plan=2)
     rc = fn(gates.data_ptr(), c.data_ptr(), h.data_ptr(), c_next.data_ptr(),
             rows, C, int(gates.dtype == torch.bfloat16),
+            ROUTES.index(p.route), p.blocks,
             torch.cuda.current_stream(c.device).cuda_stream)
     launches += 1
+    launches_by_route[p.route] += 1
     if rc != 0:
         raise RuntimeError(f"gate_update_fwd launch failed: CUDA error {rc}")
     return h, c_next
