@@ -55,6 +55,18 @@ non-zero:
 10. overfit — the memorization gate through the CLI (base_ch 16, 4
               sequences, 300 steps): launch counts, the loss per chunk
               finite and falling.
+11. resnet  — the ResNet18 family (configs/cloud_resnet.json's model:
+              lstm_layers 2, in_channels 2, the encoder frozen on a .pth
+              written by save_resnet18_encoder_pth from a seeded model):
+              K1 forward and backward (bf16) at its five levels of both
+              paths (C = 512, 256, 128, 64, 64); serving at B=4, T=4,
+              128x128 (40 K1 launches a request, no K2), the serving
+              checks, latency and a profiled request; the training step at
+              B=32, T=12, 128x128 (120 K1 forward and 120 backward launches
+              a step), the encoder bit-equal after 3 steps, kernels against
+              plain, step times, peak memory, a profiled step, then one
+              step unfrozen; the CLI's train, a resume after the .pth is
+              deleted, and one request served from resnet18_best.pt.
 
 Phase 2 also holds the gate update forward (K1) where its vector route does
 not go (C = 12, a gates view 2 bytes off a 16-byte boundary), with f32
@@ -111,8 +123,7 @@ from unet_convlstm_tpu_torch.datagen.overpass import synthesize_overpass_csv
 from unet_convlstm_tpu_torch.datagen.renderer import (VolumeScene,
                                                       sun_transmittance)
 from unet_convlstm_tpu_torch.models.registry import build_model
-from unet_convlstm_tpu_torch.models.temporal_unet import (double_convs,
-                                                          temporal_unet_apply)
+from unet_convlstm_tpu_torch.models.temporal_unet import temporal_unet_apply
 from unet_convlstm_tpu_torch.ops.kernels import (build, chained_gather,
                                                  channel_stats,
                                                  convlstm_fused,
@@ -125,11 +136,14 @@ from unet_convlstm_tpu_torch.ops.normalize import (compute_mask,
                                                    normalize_x, normalize_y)
 from unet_convlstm_tpu_torch.probes import bn_kernel_proto, probe_gather
 from unet_convlstm_tpu_torch.serve import StreamingPredictor, serve_http
-from unet_convlstm_tpu_torch.train.checkpoint import save_checkpoint
+from unet_convlstm_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                      save_checkpoint)
 from unet_convlstm_tpu_torch.train.config import TrainConfig
-from unet_convlstm_tpu_torch.train.loop import PROFILE_STEPS
+from unet_convlstm_tpu_torch.train.loop import PROFILE_STEPS, _trainable_mask
 from unet_convlstm_tpu_torch.train.optim import make_optimizer
 from unet_convlstm_tpu_torch.train.steps import make_train_step
+from unet_convlstm_tpu_torch.utils.torch_weights import (
+    save_resnet18_encoder_pth)
 
 SEED = 0
 B, T, HW, BASE = 4, 4, 128, 64           # the serving path's geometry
@@ -160,6 +174,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIT_CONFIG = os.path.join(ROOT, "configs", "mnist_small.json")
 FIT_SAMPLES, FIT_EPOCHS = 2000, 2
 OVERFIT_ITERS, OVERFIT_BASE, OVERFIT_SAMPLES = 300, 16, 4
+# the ResNet18 family: configs/cloud_resnet.json's model (lstm_layers 2,
+# in_channels 2, frozen encoder); its training geometry (BASELINE.md:59)
+RESNET_CONFIG = os.path.join(ROOT, "configs", "cloud_resnet.json")
+RB, RT, RHW = 32, 12, 128
 
 
 def k1_levels(base, hw, t):
@@ -398,11 +416,12 @@ def _k1_plan(gates, c):
     return {"route": p.route, "plan": {"vec": p.vec, "blocks": p.blocks}}
 
 
-def check_k1(gen, levels, batch, per):
-    """K1 forward at the three recurrence levels of a pass: checks and
-    times per pass (``per``: request or step). ``ms`` rotates its inputs
-    past the L2 cache; ``ms_inputs_in_l2`` reuses one set, as a path whose
-    gates come straight from the gate conv may find them."""
+def check_k1(gen, levels, batch, per, path=None):
+    """K1 forward at the recurrence levels of a pass: checks and times per
+    pass (``per``: request or step; ``path``: the model family's tag on
+    each line, none for the custom model). ``ms`` rotates its inputs past
+    the L2 cache; ``ms_inputs_in_l2`` reuses one set, as a path whose gates
+    come straight from the gate conv may find them."""
     total = _total()
     for level, C, side, launches in levels:
         rows = batch * side * side
@@ -422,6 +441,7 @@ def check_k1(gen, levels, batch, per):
         plain_ms = device_ms(convlstm_fused.gate_update_plain, args)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         emit({"phase": "kernel", "kernel": "gate_update", "level": level,
+              **({"path": path} if path else {}),
               "rows": rows, "C": C, "MB": nbytes / 1e6, "dtype": "bfloat16",
               **plan, "h_abs_err": dh, "c_rel_err": dc,
               "bit_equal_rerun": rerun, "ok": ok, "ms": ms,
@@ -503,12 +523,13 @@ def _k1_bwd_errors(args):
     return dg_ok and dc_rel <= 1e-5, err, dc_rel
 
 
-def check_k1_bwd(gen):
-    """K1 backward at the training path's three levels, bf16 (timed: the
-    path's dtype) and f32, and once without dc_out (the last step's)."""
+def check_k1_bwd(gen, levels=K1_TRAIN_LEVELS, batch=TB, path=None):
+    """K1 backward at a training path's levels (the custom model's three by
+    default), bf16 (timed: the path's dtype) and f32, and once without
+    dc_out (the last step's)."""
     total = _total()
-    for level, C, side, launches in K1_TRAIN_LEVELS:
-        rows = TB * side * side
+    for level, C, side, launches in levels:
+        rows = batch * side * side
         for dtype in (torch.bfloat16, torch.float32):
             def make():
                 r = lambda *s: torch.randn(*s, device=DEV,   # noqa: E731
@@ -519,7 +540,8 @@ def check_k1_bwd(gen):
             args = make()
             ok, err, dc_rel = _k1_bwd_errors(args)
             line = {"phase": "kernel", "kernel": "gate_update_bwd",
-                    "level": level, "rows": rows, "C": C,
+                    "level": level, **({"path": path} if path else {}),
+                    "rows": rows, "C": C,
                     "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
                     "dc_rel_err": dc_rel, "ok": ok}
             if level == "bottleneck" and dtype == torch.bfloat16:
@@ -1056,24 +1078,25 @@ def check_k7(gen):
 # 3. serving
 # ---------------------------------------------------------------------------
 
-def calibrate_bn(model, x):
+def calibrate_bn(model, x, apply=temporal_unet_apply):
     """Set every BatchNorm's running statistics to the batch statistics of
     one train-mode forward over ``x``, as training would leave them, so
     that the random model's activations keep unit scale through its depth
-    (with untouched running stats they shrink layer by layer)."""
+    (with untouched running stats they shrink layer by layer). A frozen
+    encoder's BatchNorms return their running stats and stay as they are."""
     with torch.inference_mode():
-        _, _, stats = temporal_unet_apply(model, x, train=True)
+        _, _, stats = apply(model, x, train=True)
     momentum = 0.1
-    for name, dc in double_convs(model).items():
-        s = stats[name]
-        s = s.get("conv", s)
-        for bn, (mean, var) in ((dc.bn1, s["bn1"]), (dc.bn2, s["bn2"])):
-            # new = (1 - m) * old + m * batch  →  batch
-            with torch.no_grad():
-                bn.running_mean.copy_(
-                    (mean - (1 - momentum) * bn.running_mean) / momentum)
-                bn.running_var.copy_(
-                    (var - (1 - momentum) * bn.running_var) / momentum)
+    for path, bn in model.bn_layers().items():
+        mean, var = functools.reduce(lambda t, k: t[k], path, stats)
+        if mean is bn.running_mean:
+            continue
+        # new = (1 - m) * old + m * batch  →  batch
+        with torch.no_grad():
+            bn.running_mean.copy_(
+                (mean - (1 - momentum) * bn.running_mean) / momentum)
+            bn.running_var.copy_(
+                (var - (1 - momentum) * bn.running_var) / momentum)
 
 
 def _post(conn, path, body, headers=None):
@@ -1134,6 +1157,14 @@ def phase_serve(workdir: str):
         raise AssertionError("serving main path: wrong launch counts or "
                              "outputs")
 
+    serve_checks(pred, frames, temporal_unet_apply)
+    return pred, counts
+
+
+def serve_checks(pred, frames, apply, phase="serve_checks"):
+    """Streaming, predict_many, one HTTP round trip and the whole forward
+    with the kernels on against the plain path (f32 and bf16), on a
+    predictor serving B x T x HW x HW requests; ``apply`` is the model's."""
     checks = {}
     # one 4-frame request equals four 1-frame requests
     x = frames[0, 0]
@@ -1173,11 +1204,10 @@ def phase_serve(workdir: str):
     y = {}
     with torch.inference_mode():
         for tag, policy in (("bf16", DEFAULT_POLICY), ("f32", FP32_POLICY)):
-            y[tag, "kernels"] = temporal_unet_apply(
+            y[tag, "kernels"] = apply(
                 pred.model, xn, policy=policy, use_pallas=True,
                 use_fused_doubleconv=True)[0]
-            y[tag, "plain"] = temporal_unet_apply(pred.model, xn,
-                                                  policy=policy)[0]
+            y[tag, "plain"] = apply(pred.model, xn, policy=policy)[0]
     ref = y["f32", "plain"]
     checks["kernels_vs_plain_f32"] = rel_err(y["f32", "kernels"], ref)
     checks["kernels_vs_plain_bf16_rms"] = rms_rel_err(y["bf16", "kernels"],
@@ -1190,18 +1220,17 @@ def phase_serve(workdir: str):
                 PATH_BF16_RMS_TOL,
                 PATH_BF16_VS_F32_RATIO * checks["plain_bf16_vs_f32_rms"])}
     ok = all(checks[k] <= tols[k] for k in tols)
-    emit({"phase": "serve_checks", "rel_err": checks, "tol": tols,
-          "ok": ok})
+    emit({"phase": phase, "rel_err": checks, "tol": tols, "ok": ok})
     if not ok:
-        raise AssertionError(f"serving checks failed: {checks}")
-    return pred, counts
+        raise AssertionError(f"{phase} failed: {checks}")
 
 
 # ---------------------------------------------------------------------------
 # 4. latency and where the time goes
 # ---------------------------------------------------------------------------
 
-def phase_latency(pred):
+def phase_latency(pred, prefix=""):
+    """``prefix`` tags the phase names (``latency``, ``profile``)."""
     rng = np.random.default_rng(SEED + 1)
     out = []
     for b, t in ((B, T), (1, 1)):
@@ -1221,7 +1250,7 @@ def phase_latency(pred):
                     "max_ms": max(ms),
                     "min_ms": min(ms),
                     "frames_per_s_p50": b * t / statistics.median(ms) * 1e3})
-    emit({"phase": "latency", "runs": out})
+    emit({"phase": f"{prefix}latency", "runs": out})
 
     # one B=4, T=4 request under the profiler: device time by kernel
     sid = pred.open_session(B, HW, HW)
@@ -1236,8 +1265,8 @@ def phase_latency(pred):
         wall_ms = (time.perf_counter() - t0) * 1e3
     pred.close_session(sid)
 
-    emit({"phase": "profile", "B": B, "T": T, **device_breakdown(prof,
-                                                                 wall_ms)})
+    emit({"phase": f"{prefix}profile", "B": B, "T": T,
+          **device_breakdown(prof, wall_ms)})
 
 
 def kernel_group(name: str) -> str:
@@ -1331,15 +1360,16 @@ def _bitequal(a, b) -> bool:
 
 
 class _Train:
-    """The training path's model, data and steps (the benchmark's batch:
-    Moving-MNIST B=64, T=10, 64x64 at seed 0; base_ch 32 from a seeded
-    generator)."""
+    """A training path's model, data and steps: by default the benchmark's
+    (Moving-MNIST B=64, T=10, 64x64 at seed 0; base_ch 32 from a seeded
+    generator); or a raw batch (numpy), its norm stats and a model
+    config."""
 
-    def __init__(self):
-        x, y, self.norm = benchmark.moving_mnist_batch()
+    def __init__(self, batch=None, model_cfg=benchmark.MODEL_CFG):
+        x, y, self.norm = batch or benchmark.moving_mnist_batch()
         self.x = torch.from_numpy(x).to(DEV)
         self.y = torch.from_numpy(y).to(DEV)
-        _, init, self.apply, _ = build_model(benchmark.MODEL_CFG)
+        _, init, self.apply, _ = build_model(model_cfg)
         self.model = init(torch.Generator().manual_seed(SEED), device=DEV)
         self.init = copy.deepcopy(self.model.state_dict())
 
@@ -1367,8 +1397,74 @@ class _Train:
         loss = compute_loss(y_pred, normalize_y(self.y, self.norm),
                             compute_mask(self.x, self.norm), False)
         loss.backward()
-        g = torch.cat([p.grad.flatten() for p in self.model.parameters()])
+        g = torch.cat([p.grad.flatten() for p in self.model.parameters()
+                       if p.grad is not None])
         return y_pred.detach().float(), g, float(loss.detach())
+
+    def first_pass(self):
+        """The first forward and gradients, kernels against plain: in f32
+        (TF32 off) relative to the plain path, in bf16 each path's RMS
+        error against the f32 plain path."""
+        probes = {}
+        for tag, policy in (("f32", FP32_POLICY), ("bf16", DEFAULT_POLICY)):
+            for kernels in (True, False):
+                with (full_fp32() if tag == "f32"
+                      else contextlib.nullcontext()):
+                    probes[tag, kernels] = self.probe(policy, kernels)
+        ref_y, ref_g, _ = probes["f32", False]
+        return {
+            "f32_y": rel_err(probes["f32", True][0], ref_y),
+            "f32_grad_vs_norm": float((probes["f32", True][1] - ref_g).abs()
+                                      .max() / ref_g.norm()),
+            "bf16_kernels_y_rms": rms_rel_err(probes["bf16", True][0], ref_y),
+            "bf16_plain_y_rms": rms_rel_err(probes["bf16", False][0], ref_y),
+            "bf16_kernels_grad_rms": rms_rel_err(probes["bf16", True][1],
+                                                 ref_g),
+            "bf16_plain_grad_rms": rms_rel_err(probes["bf16", False][1],
+                                               ref_g),
+        }
+
+    def step_times(self, opt, steps):
+        """Step wall times, the kernel path and the plain one (``steps``
+        keyed True and False) in turns over TIMED_STEPS each, after one
+        warm-up step each that reads its peak memory: (runs, peak GiB)."""
+        times, peak = {True: [], False: []}, {}
+        for kernels in (True, False):             # warm-up, peak memory
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps[kernels](self.model, opt, self.x, self.y)
+            torch.cuda.synchronize()
+            peak["kernels" if kernels else "plain"] = \
+                torch.cuda.max_memory_allocated() / 2 ** 30
+        for block in range(4):
+            for kernels in ((True, False) if block % 2 == 0
+                            else (False, True)):
+                for _ in range(TIMED_STEPS // 4):
+                    t0 = time.perf_counter()
+                    steps[kernels](self.model, opt, self.x, self.y)
+                    torch.cuda.synchronize()
+                    times[kernels].append((time.perf_counter() - t0) * 1e3)
+        frames = self.x.shape[0] * self.x.shape[1]
+        runs = {}
+        for kernels, ms in times.items():
+            p50 = statistics.median(ms)
+            runs["kernels" if kernels else "plain"] = {
+                "steps": len(ms), "p50_ms": p50,
+                "p90_ms": sorted(ms)[int(0.9 * len(ms)) - 1],
+                "min_ms": min(ms), "max_ms": max(ms),
+                "frames_per_s_p50": frames / p50 * 1e3}
+        return runs, peak
+
+    def profiled_step(self, step, opt):
+        """One step under the profiler: where its device time goes."""
+        act = [torch.profiler.ProfilerActivity.CPU,
+               torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=act) as prof:
+            t0 = time.perf_counter()
+            step(self.model, opt, self.x, self.y)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        return device_breakdown(prof, wall_ms)
 
 
 def _params_diff(a, b, model):
@@ -1428,22 +1524,7 @@ def phase_train(tr: _Train):
                     for _ in range(TRAIN_STEPS)]
 
     # -- kernels against plain: the first forward and gradients ----------
-    probes = {}
-    for tag, policy in (("f32", f32), ("bf16", bf16)):
-        for kernels in (True, False):
-            with full_fp32() if tag == "f32" else contextlib.nullcontext():
-                probes[tag, kernels] = tr.probe(policy, kernels)
-    ref_y, ref_g, _ = probes["f32", False]
-    checks = {
-        "f32_y": rel_err(probes["f32", True][0], ref_y),
-        "f32_grad_vs_norm": float((probes["f32", True][1] - ref_g).abs().max()
-                                  / ref_g.norm()),
-        "bf16_kernels_y_rms": rms_rel_err(probes["bf16", True][0], ref_y),
-        "bf16_plain_y_rms": rms_rel_err(probes["bf16", False][0], ref_y),
-        "bf16_kernels_grad_rms": rms_rel_err(probes["bf16", True][1], ref_g),
-        "bf16_plain_grad_rms": rms_rel_err(probes["bf16", False][1], ref_g),
-    }
-    del probes, ref_y, ref_g
+    checks = tr.first_pass()
     # -- f32 steps, kernels and plain each from the same state -----------
     step_k, step_p = tr.step(f32, True), tr.step(f32, False)
     opt = tr.fresh()
@@ -1502,46 +1583,15 @@ def phase_train(tr: _Train):
     del before
 
     # -- step time, kernels and plain in turns; peak memory --------------
-    times = {True: [], False: []}
     opt = tr.fresh()
-    steps = {True: step, False: plain}
-    peak = {}
-    for kernels in (True, False):                 # warm-up, peak memory
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        steps[kernels](tr.model, opt, tr.x, tr.y)
-        torch.cuda.synchronize()
-        peak["kernels" if kernels else "plain"] = \
-            torch.cuda.max_memory_allocated() / 2 ** 30
-    for block in range(4):
-        for kernels in ((True, False) if block % 2 == 0 else (False, True)):
-            for _ in range(TIMED_STEPS // 4):
-                t0 = time.perf_counter()
-                steps[kernels](tr.model, opt, tr.x, tr.y)
-                torch.cuda.synchronize()
-                times[kernels].append((time.perf_counter() - t0) * 1e3)
-    runs = {}
-    for kernels, ms in times.items():
-        p50 = statistics.median(ms)
-        runs["kernels" if kernels else "plain"] = {
-            "steps": len(ms), "p50_ms": p50,
-            "p90_ms": sorted(ms)[int(0.9 * len(ms)) - 1],
-            "min_ms": min(ms), "max_ms": max(ms),
-            "frames_per_s_p50": TB * TT / p50 * 1e3}
+    runs, peak = tr.step_times(opt, {True: step, False: plain})
     emit({"phase": "train_step_time", "device": dev_name, "B": TB, "T": TT,
           "H": THW, "base_ch": TBASE, "dtype": "bfloat16", **runs,
           "peak_memory_gib": peak})
 
     # -- one kernels step under the profiler ------------------------------
-    act = [torch.profiler.ProfilerActivity.CPU,
-           torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        t0 = time.perf_counter()
-        step(tr.model, opt, tr.x, tr.y)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     emit({"phase": "train_profile", "B": TB, "T": TT,
-          **device_breakdown(prof, wall_ms)})
+          **tr.profiled_step(step, opt)})
     return counts, runs
 
 
@@ -1980,6 +2030,341 @@ def phase_overfit(npz: str, workdir: str):
         raise AssertionError("overfit gate: bad losses or launch counts")
 
 
+# ---------------------------------------------------------------------------
+# 11. the ResNet18 family
+# ---------------------------------------------------------------------------
+
+def resnet_k1_levels(hw, t, layers):
+    """The gate updates of one resnet pass: (level, hidden C, map side,
+    launches) of the bottleneck and the four skip ConvLSTMs."""
+    return [(level, C, hw // d, layers * t) for level, C, d in (
+        ("bottleneck", 512, 32), ("skip3", 256, 16), ("skip2", 128, 8),
+        ("skip1", 64, 4), ("skip0", 64, 2))]
+
+
+def _resnet_cfg(pth=None):
+    """configs/cloud_resnet.json's model, with ``pretrained_path``."""
+    with open(RESNET_CONFIG) as f:
+        cfg = json.load(f)["model"]
+    return dict(cfg, pretrained_path=pth) if pth else cfg
+
+
+def _encoder_equal(state, enc) -> bool:
+    """A model state dict's ``encoder.*`` entries hold the bits of a
+    torchvision-named encoder state dict."""
+    return all(torch.equal(state[f"encoder.{k}"].cpu(), t.cpu())
+               for k, t in enc.items())
+
+
+def resnet_serve(workdir: str):
+    """An encoder .pth from a seeded model with calibrated BatchNorms; the
+    cloud_resnet model frozen on it, saved as a .pt (pretrained_resolved)
+    and served: 2 sessions x 3 requests at B=4, T=4, 128x128, launch
+    counts read around them, then the serving checks. Returns (predictor,
+    launches, the .pth's path)."""
+    rng = np.random.default_rng(SEED + 3)
+    t0 = time.perf_counter()
+    X = (rng.gamma(2.0, 0.6, (8, T, HW, HW, 2))).astype(np.float32)
+    Y = (rng.standard_normal((8, T, HW, HW, 1)) * 5).astype(np.float32)
+    norm = compute_norm_stats(X, Y)
+    xn = normalize_x(torch.from_numpy(X[:B]).to(DEV), norm)
+    donor_cfg = dict(_resnet_cfg(), freeze_encoder=False)
+    _, init, apply, _ = build_model(donor_cfg)
+    donor = init(torch.Generator().manual_seed(SEED + 3), device=DEV)
+    calibrate_bn(donor, xn, apply)
+    pth = save_resnet18_encoder_pth(donor.state_dict(),
+                                    os.path.join(workdir, "resnet18-enc.pth"))
+    del donor
+    model_cfg = _resnet_cfg(pth)
+    cfg, init, apply, _ = build_model(model_cfg)
+    if not cfg.freeze_encoder:
+        raise AssertionError("the .pth did not freeze the encoder")
+    # the decoder's BatchNorms keep their init: calibrated on one batch,
+    # the random decoder's near-constant channels take gains up to
+    # 1/sqrt(eps) and bf16 alone moves its output by ~27% RMS (both
+    # paths, and JAX's alike); the calibrated encoder keeps the ConvLSTMs'
+    # inputs at unit scale
+    model = init(torch.Generator().manual_seed(SEED), device=DEV)
+    saved = dict(model_cfg, pretrained_resolved=True)
+    saved.pop("pretrained_path")
+    ckpt = save_checkpoint(os.path.join(workdir, "resnet18.pt"),
+                           model.state_dict(), saved, norm.to_dict())
+    del model
+    pred = StreamingPredictor(ckpt, device=DEV)
+    pred.warmup(B, HW, HW, T)
+    torch.cuda.synchronize()
+    enc = torch.load(pth, weights_only=True)
+    emit({"phase": "resnet_serve_setup", "config": cfg.to_dict(),
+          "params": sum(p.numel() for p in pred.model.parameters()),
+          "encoder_from_pth": _encoder_equal(pred.model.state_dict(), enc),
+          "checkpoint_mb": os.path.getsize(ckpt) / 2**20,
+          "setup_s": time.perf_counter() - t0})
+
+    frames = (rng.gamma(2.0, 0.6, (SESSIONS, REQUESTS_PER_SESSION, B, T, HW,
+                                   HW, 2))).astype(np.float32)
+    sids = [pred.open_session(B, HW, HW) for _ in range(SESSIONS)]
+    per_request = sum(n for *_, n in resnet_k1_levels(HW, T,
+                                                      cfg.lstm_layers))
+    reset_launches()
+    outs = [pred.predict(sid, frames[s, r])
+            for r in range(REQUESTS_PER_SESSION)
+            for s, sid in enumerate(sids)]
+    counts = path_counts()
+    requests = SESSIONS * REQUESTS_PER_SESSION
+    expect = on_main_routes({"gate_update": per_request * requests,
+                             "gate_update_bwd": 0, "conv3x3_fused": 0,
+                             **NO_LAUNCHES})
+    finite = all(np.isfinite(y).all() for y in outs)
+    shapes_ok = all(y.shape == (B, T, HW, HW, 1) for y in outs)
+    emit({"phase": "resnet_serve_main_path", "requests": requests, "B": B,
+          "T": T, "H": HW, "W": HW, "launches_per_request": per_request,
+          "launches": counts, "expected": expect, "finite": finite,
+          "shapes_ok": shapes_ok,
+          "y_abs_max": float(max(np.abs(y).max() for y in outs))})
+    if (counts != expect or not finite or not shapes_ok
+            or not _encoder_equal(pred.model.state_dict(), enc)):
+        raise AssertionError("resnet serving main path: wrong launch "
+                             "counts, outputs or encoder")
+    serve_checks(pred, frames, apply, phase="resnet_serve_checks")
+    return pred, counts, pth
+
+
+def resnet_train(pth: str):
+    """The family's training step at its production geometry (B=32, T=12,
+    128x128, bf16, AdamW lr 1e-3, wd 1e-4, clip 1.0, the encoder frozen on
+    the .pth): 3 steps with the launch counts read around them and the
+    encoder bit-equal after; kernels against plain (f32, bf16); step times
+    and peak memory; one profiled step; then one step with the encoder
+    unfrozen. Returns (launches of the main path, per-step launches)."""
+    rng = np.random.default_rng(SEED + 4)
+    x = rng.gamma(2.0, 0.6, (RB, RT, RHW, RHW, 2)).astype(np.float32)
+    y = (rng.standard_normal((RB, RT, RHW, RHW, 1)) * 5).astype(np.float32)
+    model_cfg = _resnet_cfg(pth)
+    tr = _Train((x, y, compute_norm_stats(x, y)), model_cfg)
+    del x, y
+    mask = _trainable_mask(tr.model, model_cfg)
+    if not model_cfg["freeze_encoder"] or mask is None:
+        raise AssertionError("the training model's encoder is not frozen")
+    per_step = sum(n for *_, n in resnet_k1_levels(
+        RHW, RT, model_cfg["lstm_layers"]))
+    bf16 = DEFAULT_POLICY
+
+    def encoder(model):
+        return {k: v.detach().clone() for k, v in
+                model.encoder.state_dict().items()}
+
+    # -- the main path: bf16, kernels on, launch counts read --------------
+    opt = tr.fresh(trainable_mask=mask)
+    step = tr.step(bf16, True)
+    enc0 = encoder(tr.model)
+    torch.cuda.synchronize()
+    reset_launches()
+    losses = [float(step(tr.model, opt, tr.x, tr.y)[0])
+              for _ in range(TRAIN_STEPS)]
+    counts = path_counts()
+    expect = on_main_routes({"gate_update": per_step * TRAIN_STEPS,
+                             "gate_update_bwd": per_step * TRAIN_STEPS,
+                             "conv3x3_fused": 0, **NO_LAUNCHES})
+    enc_same = all(torch.equal(enc0[k], v)
+                   for k, v in encoder(tr.model).items())
+    moved = not torch.equal(tr.init["segmentation_head.0.weight"],
+                            tr.model.segmentation_head[0].weight)
+    finite = all(math.isfinite(v) for v in losses)
+    emit({"phase": "resnet_train_main_path", "steps": TRAIN_STEPS, "B": RB,
+          "T": RT, "H": RHW, "W": RHW, "dtype": "bfloat16",
+          "launches_per_step": per_step, "losses": losses,
+          "launches": counts, "expected": expect, "finite": finite,
+          "encoder_bit_equal": enc_same, "decoder_moved": moved})
+    if counts != expect or not finite or not enc_same or not moved:
+        raise AssertionError("resnet training main path: wrong launch "
+                             "counts, a non-finite loss or a moved encoder")
+
+    # -- kernels against plain: the first forward and gradients -----------
+    checks = tr.first_pass()
+    # in bf16 only the ratio to the plain path holds: train-mode BN over
+    # the random decoder compounds bf16's rounding layer by layer, ~25%
+    # RMS off the f32 forward on both paths at this geometry on an H100
+    # (28% on the CPU at B=4-8, T=4; the JAX package's bf16 path is as far
+    # off its f32 one on such a model), so PATH_BF16_RMS_TOL does not apply
+    tols = {"f32_y": PATH_F32_TOL, "f32_grad_vs_norm": TRAIN_F32_TOL["grad"],
+            "bf16_kernels_y_rms": PATH_BF16_VS_F32_RATIO
+            * checks["bf16_plain_y_rms"],
+            "bf16_kernels_grad_rms": PATH_BF16_VS_F32_RATIO
+            * checks["bf16_plain_grad_rms"]}
+    ok = all(checks[k] <= tols[k] for k in tols)
+    emit({"phase": "resnet_train_checks", "first_pass": checks, "tol": tols,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"resnet training checks failed: {checks}")
+
+    # -- step time, kernels and plain in turns; peak memory --------------
+    opt = tr.fresh(trainable_mask=mask)
+    runs, peak = tr.step_times(opt, {True: step, False: tr.step(bf16, False)})
+    emit({"phase": "resnet_train_step_time",
+          "device": torch.cuda.get_device_name(0), "B": RB, "T": RT,
+          "H": RHW, "dtype": "bfloat16", **runs, "peak_memory_gib": peak})
+    emit({"phase": "resnet_train_profile", "B": RB, "T": RT,
+          **tr.profiled_step(step, opt)})
+
+    # -- one step with the encoder unfrozen (its BN on batch stats) -------
+    open_cfg = dict(model_cfg, freeze_encoder=False)
+    _, init, apply, _ = build_model(open_cfg)
+    x, y, norm, init_state = tr.x, tr.y, tr.norm, tr.init
+    del tr, opt, step
+    torch.cuda.empty_cache()
+    model = init(device=DEV)
+    model.load_state_dict(init_state)
+    opt = make_optimizer(model.named_parameters(), LR,
+                         trainable_mask=_trainable_mask(model, open_cfg))
+    open_step = make_train_step(functools.partial(
+        apply, policy=bf16, use_pallas=True, use_fused_doubleconv=True),
+        norm)
+    enc0 = encoder(model)
+    torch.cuda.synchronize()
+    reset_launches()
+    loss = float(open_step(model, opt, x, y)[0])
+    open_counts = path_counts()
+    open_expect = on_main_routes({"gate_update": per_step,
+                                  "gate_update_bwd": per_step,
+                                  "conv3x3_fused": 0, **NO_LAUNCHES})
+    enc1 = encoder(model)
+    changed = {k: not torch.equal(enc0[k], enc1[k]) for k in enc0
+               if not k.endswith("num_batches_tracked")}
+    ok = (open_counts == open_expect and math.isfinite(loss)
+          and all(changed.values()))
+    emit({"phase": "resnet_train_unfrozen", "loss": loss,
+          "launches": open_counts, "expected": open_expect,
+          "encoder_entries_changed": sum(changed.values()),
+          "encoder_entries": len(changed), "ok": ok})
+    if not ok:
+        raise AssertionError("resnet unfrozen step: wrong launch counts or "
+                             "an encoder entry that did not move")
+    return counts, per_step
+
+
+def resnet_cli(workdir: str, npz: str, pth: str):
+    """``train`` (configs/cloud_resnet.json, the encoder frozen on a copy
+    of the .pth) one epoch on the fit phase's gen-mnist data, the .pth
+    deleted, a resume for one more epoch, then one request served from
+    ``resnet18_best.pt``. Returns the launches of the two training runs."""
+    ck = os.path.join(workdir, "resnet_ckpts")
+    own = os.path.join(workdir, "resnet18-cli.pth")
+    with open(pth, "rb") as src, open(own, "wb") as dst:
+        dst.write(src.read())
+    enc = torch.load(own, weights_only=True)
+    with open(RESNET_CONFIG) as f:
+        cfg = TrainConfig.from_dict(json.load(f))
+    ds = NPZSequenceDataset(npz)
+    n, t_seq = len(ds), ds.T
+    del ds
+    steps = int(cfg.train_frac * n) // cfg.batch_size
+    evals = math.ceil((n - int(cfg.train_frac * n)) / cfg.batch_size)
+    per_pass = sum(k for *_, k in resnet_k1_levels(
+        THW, t_seq, cfg.model["lstm_layers"]))
+    per_epoch = on_main_routes({
+        "gate_update": (steps + evals) * per_pass,
+        "gate_update_bwd": steps * per_pass, "conv3x3_fused": 0,
+        **NO_LAUNCHES})
+    last = os.path.join(ck, "resnet18_last.pt")
+    runs = {}
+    for tag, flags, n_epochs in (("train", [], 1),
+                                 ("resume", ["--resume", last], 2)):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = _cli(["train", "--config", RESNET_CONFIG, "--npz", npz, *flags,
+                    f"checkpoint_dir={ck}", f"epochs={n_epochs}",
+                    f"model.pretrained_path={own}"])
+        state, meta = restore_checkpoint(last)
+        runs[tag] = {"wall_s": time.perf_counter() - t0,
+                     "launches": path_counts(), "expected": per_epoch,
+                     "epoch_lines": [ln for ln in out.splitlines()
+                                     if ln.startswith("Epoch ")],
+                     "saved_model_config": meta["config"]["model"],
+                     "encoder_equals_pth": _encoder_equal(state, enc)}
+        if tag == "train":
+            os.remove(own)            # the resume must not need it
+    runs["resume"]["resumed_at_epoch_2"] = (
+        f"resumed from {last} at epoch 2" in out)
+    pred = StreamingPredictor(os.path.join(ck, "resnet18_best.pt"),
+                              device=DEV)
+    frame = np.ascontiguousarray(np.moveaxis(np.load(npz)["X"][:1, :1], 2,
+                                             -1))
+    sid = pred.open_session(1, THW, THW)
+    torch.cuda.synchronize()
+    reset_launches()
+    y = pred.predict(sid, frame)
+    serve = {"launches": path_counts(), "expected": on_main_routes(dict(
+        NO_LAUNCHES, gate_update=sum(k for *_, k in resnet_k1_levels(
+            THW, 1, cfg.model["lstm_layers"])), gate_update_bwd=0,
+        conv3x3_fused=0)), "shape": list(y.shape),
+        "finite": bool(np.isfinite(y).all())}
+    del pred
+    saved = runs["resume"]["saved_model_config"]
+    ok = (all(r["launches"] == r["expected"] and r["encoder_equals_pth"]
+              and len(r["epoch_lines"]) == 1 for r in runs.values())
+          and runs["resume"]["resumed_at_epoch_2"]
+          and runs["resume"]["epoch_lines"][0].startswith("Epoch 2/")
+          and saved.get("pretrained_resolved") is True
+          and "pretrained_path" not in saved
+          and saved.get("freeze_encoder") is True
+          and serve["launches"] == serve["expected"] and serve["finite"]
+          and serve["shape"] == [1, 1, THW, THW, 1])
+    emit({"phase": "resnet_cli", "config": os.path.relpath(RESNET_CONFIG,
+                                                           ROOT),
+          "samples": n, "B": cfg.batch_size, "T": t_seq, "H": THW,
+          "train_steps_per_epoch": steps, "eval_batches_per_epoch": evals,
+          "runs": runs, "serve": serve, "ok": ok})
+    if not ok:
+        raise AssertionError("resnet CLI run checks failed")
+    return {k: runs["train"]["launches"][k] + runs["resume"]["launches"][k]
+            for k in per_epoch}
+
+
+def phase_resnet(workdir: str, npz: str):
+    """The ResNet18 family: K1 forward and backward at its five levels on
+    both paths, serving and latency, the training step, the CLI run."""
+    layers = _resnet_cfg()["lstm_layers"]
+    serve_levels = resnet_k1_levels(HW, T, layers)
+    train_levels = resnet_k1_levels(RHW, RT, layers)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    k1 = {"serve": check_k1(gen, serve_levels, B, "request", "resnet"),
+          "train": check_k1(gen, train_levels, RB, "step", "resnet")}
+    k1_bwd = check_k1_bwd(gen, train_levels, RB, "resnet")
+    pred, serve_counts, pth = resnet_serve(workdir)
+    phase_latency(pred, prefix="resnet_")
+    del pred
+    torch.cuda.empty_cache()
+    train_counts, per_step = resnet_train(pth)
+    torch.cuda.empty_cache()
+    cli_counts = resnet_cli(workdir, npz, pth)
+    per_request = sum(n for *_, n in serve_levels)
+    return {"gate_update": {
+                "launches": serve_counts["gate_update"],
+                "launches_per_request": per_request,
+                "train_launches": train_counts["gate_update"],
+                "launches_per_step": per_step,
+                "cli_launches": cli_counts["gate_update"],
+                "max_abs_err": max(k1["serve"]["max_abs_err"],
+                                   k1["train"]["max_abs_err"]),
+                **{k: k1["serve"][k] for k in ("ms", "plain_ms",
+                                               "bound_ms")},
+                "per": f"one resnet request: B={B}, T={T}, {HW}x{HW}, "
+                       f"lstm_layers {layers}, bf16",
+                "train": dict({k: k1["train"][k] for k in (
+                    "ms", "plain_ms", "bound_ms")},
+                    per=f"one resnet training step: B={RB}, T={RT}, "
+                        f"{RHW}x{RHW}, bf16")},
+            "gate_update_bwd": {
+                "launches": train_counts["gate_update_bwd"],
+                "launches_per_step": per_step,
+                "cli_launches": cli_counts["gate_update_bwd"],
+                **{k: k1_bwd[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms")},
+                "per": f"one resnet training step: B={RB}, T={RT}, "
+                       f"{RHW}x{RHW}, bf16"}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2006,7 +2391,11 @@ def main() -> int:
           "fit": "launch counts exact per epoch; the resume runs one "
                  "epoch; losses finite; one served request finite",
           "overfit": "chunk losses finite, each below the first, the last "
-                     "the lowest"})
+                     "the lowest",
+          "resnet": "K1 lines as gate_update and gate_update_bwd; serving "
+                    "as serve_checks; training: the first forward and "
+                    "gradients as train_f32 and train_bf16; launch counts "
+                    "exact; the frozen encoder bit-equal"})
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     k1 = check_k1(gen, K1_LEVELS, B, "request")
     k1_edges = check_k1_edges(gen)
@@ -2034,6 +2423,8 @@ def main() -> int:
         npz, fit_counts = phase_fit(workdir)
         torch.cuda.empty_cache()
         phase_overfit(npz, workdir)
+        torch.cuda.empty_cache()
+        resnet = phase_resnet(workdir, npz)
 
     per = f"one request: B={B}, T={T}, {HW}x{HW}, base_ch {BASE}, bf16"
     per_step = (f"one training step: B={TB}, T={TT}, {THW}x{THW}, base_ch "
@@ -2112,6 +2503,8 @@ def main() -> int:
                            "its uniforms in K4 and does not launch it")
     for k in kernels[:3]:
         k["fit_launches"] = fit_counts[k["name"]]
+    kernels[0]["resnet"] = resnet["gate_update"]
+    kernels[2]["resnet"] = resnet["gate_update_bwd"]
     kernels.append({
         "name": "channel_sum_sumsq", "route": "cuda",
         "source": "unet_convlstm_tpu_torch/csrc/channel_stats.cu",

@@ -55,7 +55,8 @@ COVERED = ("ops.kernels.convlstm_fused", "serve", "train.steps",
            "ops.kernels.chained_gather", "probes.bn_kernel_proto",
            "probes.probe_gather", "data.npz_dataset", "data.pipeline",
            "data.fast_gather", "train.loop", "train.config", "train.guard",
-           "train.overfit", "train.checkpoint")
+           "train.overfit", "train.checkpoint", "models.resnet_unet",
+           "models.registry", "utils.torch_weights")
 
 
 def test_every_module_imports_with_jax_blocked():

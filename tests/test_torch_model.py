@@ -112,8 +112,8 @@ def test_streaming_state_and_registry():
             parts.append(y)
     np.testing.assert_allclose(torch.cat(parts, 1).numpy(), y_all.numpy(),
                                rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model({"type": "resnet18"})
+    rcfg, *_ = build_model({"type": "resnet18", "freeze_encoder": False})
+    assert type(rcfg).__name__ == "ResNetUNetConfig"  # the second family
     with pytest.raises(ValueError, match="unknown model type"):
         build_model({"type": "vit"})
     zero = temporal_unet_init_state(TemporalUNetConfig(base_ch=4), 2, 32, 32)

@@ -71,6 +71,17 @@ class TemporalUNetDualView(nn.Module):
         self.up0 = Up(bc * 2, bc, g)
         self.outc = OutConv(bc, cfg.out_channels, g)
 
+    def bn_layers(self) -> Dict[Tuple[str, ...], nn.BatchNorm2d]:
+        """The BatchNorm behind each leaf of the stats tree that
+        ``temporal_unet_apply`` returns, by its path in the tree (an Up
+        block nests its DoubleConv's stats under ``conv``)."""
+        out = {}
+        for name, dc in double_convs(self).items():
+            pre = (name, "conv") if name.startswith("up") else (name,)
+            out[pre + ("bn1",)] = dc.bn1
+            out[pre + ("bn2",)] = dc.bn2
+        return out
+
 
 def temporal_unet_init_state(cfg: TemporalUNetConfig, batch: int,
                              height: int, width: int,
@@ -91,26 +102,14 @@ def temporal_unet_init_state(cfg: TemporalUNetConfig, batch: int,
 
 
 def double_convs(m: TemporalUNetDualView) -> Dict[str, DoubleConv]:
-    """The DoubleConv behind each key of the BatchNorm stats tree that
-    ``temporal_unet_apply`` returns."""
+    """The DoubleConv behind each top-level key of the BatchNorm stats tree
+    that ``temporal_unet_apply`` returns."""
     out = {"inc": m.inc}
     for name in ("down1", "down2", "down3", "bottleneck"):
         out[name] = getattr(m, name).net[1]
     for name in ("up3", "up2", "up1", "up0"):
         out[name] = getattr(m, name).conv
     return out
-
-
-@torch.no_grad()
-def commit_bn_stats(m: TemporalUNetDualView, stats: Dict[str, Any]) -> None:
-    """Write a train-mode forward's new running (mean, var) into the
-    BatchNorm buffers (the JAX train step's ``state["stats"]`` update)."""
-    for name, dc in double_convs(m).items():
-        s = stats[name]
-        s = s.get("conv", s)       # an Up block nests its DoubleConv's
-        for bn, (mean, var) in ((dc.bn1, s["bn1"]), (dc.bn2, s["bn2"])):
-            bn.running_mean.copy_(mean)
-            bn.running_var.copy_(var)
 
 
 def _encode(m: TemporalUNetDualView, x_bt, train: bool, policy: Policy,

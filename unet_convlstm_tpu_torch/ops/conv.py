@@ -164,9 +164,12 @@ def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def max_pool2d(x: torch.Tensor, window: int = 2,
-               stride: Optional[int] = None) -> torch.Tensor:
+               stride: Optional[int] = None, padding: int = 0
+               ) -> torch.Tensor:
+    """NHWC max pool; ``padding`` pads each side with -inf (torch's
+    ``MaxPool2d(3, 2, padding=1)`` of the resnet stem)."""
     stride = stride or window
-    return _to_nhwc(F.max_pool2d(_to_nchw(x), window, stride))
+    return _to_nhwc(F.max_pool2d(_to_nchw(x), window, stride, padding))
 
 
 # ---------------------------------------------------------------------------

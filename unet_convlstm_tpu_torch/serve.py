@@ -20,8 +20,9 @@ Endpoints (the JAX package's wire format):
                                       "N,B,T,H,W,C" → raw f32 [N,B,T,H,W,out]
     DELETE /v1/session/<sid>          → {"closed": true}
 
-The step runs the model with both hand-written kernels on (the ConvLSTM
-gate update and the fused 3x3 conv), under ``torch.inference_mode()``.
+The step runs the model with both hand-written kernel flags on (the ConvLSTM
+gate update and the fused 3x3 conv; the ResNet18 family's decoder does not
+fuse, as in the JAX package), under ``torch.inference_mode()``.
 Device work is serialized with a lock (one card, many HTTP threads).
 """
 
@@ -105,7 +106,9 @@ class StreamingPredictor:
     # -- session management -------------------------------------------------
 
     def _input_channels(self) -> int:
-        return 2 * self.model_cfg.get("in_channels_per_sat", 1)
+        if self.model_cfg.get("type", "custom") == "custom":
+            return 2 * self.model_cfg.get("in_channels_per_sat", 1)
+        return self.model_cfg.get("in_channels", 2)
 
     def open_session(self, batch: int, height: int, width: int) -> str:
         sid = uuid.uuid4().hex[:16]

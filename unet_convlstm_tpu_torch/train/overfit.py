@@ -21,8 +21,7 @@ import torch
 
 from ..core.dtypes import resolve_device
 from ..data.npz_dataset import NPZSequenceDataset
-from ..models.registry import build_model
-from ..models.temporal_unet import commit_bn_stats
+from ..models.registry import build_model, commit_bn_stats
 from ..ops.losses import masked_mse
 from ..ops.normalize import compute_mask, normalize_x, normalize_y
 from .checkpoint import save_checkpoint

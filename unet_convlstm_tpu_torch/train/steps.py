@@ -19,11 +19,11 @@ apply). Batches are raw NHWC tensors [B, T, H, W, C] on the model's device.
 
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+from typing import Callable, Tuple
 
 import torch
 
-from ..models.temporal_unet import commit_bn_stats, double_convs
+from ..models.registry import bn_buffers, commit_bn_stats
 from ..ops.losses import compute_loss
 from ..ops.normalize import (NormStats, compute_mask, denormalize_y,
                              normalize_x, normalize_y)
@@ -42,11 +42,6 @@ def _update_was_finite(opt: Optimizer) -> bool:
     if opt.skip_nonfinite is not None:
         return opt.notfinite_count == 0
     return all_finite(opt.grads())
-
-
-def _bn_buffers(model) -> List[torch.Tensor]:
-    return [t for dc in double_convs(model).values() for bn in (dc.bn1, dc.bn2)
-            for t in (bn.running_mean, bn.running_var)]
 
 
 @torch.no_grad()
@@ -107,7 +102,7 @@ def _make_accum_step_core(apply_fn: Callable, norm_stats: NormStats,
                 f"batch size {B} is not divisible by accum_steps={K} — "
                 f"gradient accumulation splits the batch into K equal "
                 f"microbatches")
-        snap = ([t.clone() for t in _bn_buffers(model)]
+        snap = ([t.clone() for t in bn_buffers(model)]
                 if guard_nonfinite_stats else None)
         opt.zero_grad()
         loss_sum = torch.zeros((), dtype=torch.float32, device=x_raw.device)
@@ -130,7 +125,7 @@ def _make_accum_step_core(apply_fn: Callable, norm_stats: NormStats,
         opt.step()
         if guard_nonfinite_stats and not _update_was_finite(opt):
             with torch.no_grad():
-                torch._foreach_copy_(_bn_buffers(model), snap)
+                torch._foreach_copy_(bn_buffers(model), snap)
         return loss_sum / K, sums
 
     return step
