@@ -56,7 +56,10 @@ COVERED = ("ops.kernels.convlstm_fused", "serve", "train.steps",
            "probes.probe_gather", "data.npz_dataset", "data.pipeline",
            "data.fast_gather", "train.loop", "train.config", "train.guard",
            "train.overfit", "train.checkpoint", "models.resnet_unet",
-           "models.registry", "utils.torch_weights")
+           "models.registry", "utils.torch_weights", "eval.metrics",
+           "eval.rollout", "eval.image_metrics", "viz.geometry",
+           "viz.figures", "viz.rollout_video", "ops.quant",
+           "ops.kernels.conv_int8")
 
 
 def test_every_module_imports_with_jax_blocked():

@@ -20,6 +20,7 @@ from unet_convlstm_tpu.serve import StreamingPredictor as JPredictor
 from unet_convlstm_tpu.train.checkpoint import save_checkpoint as j_save
 from unet_convlstm_tpu_torch.cli import build_parser
 from unet_convlstm_tpu_torch.ops.normalize import compute_norm_stats
+from unet_convlstm_tpu_torch.ops.quant import QuantConv2d
 from unet_convlstm_tpu_torch.serve import StreamingPredictor, serve_http
 from unet_convlstm_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                       save_checkpoint)
@@ -79,8 +80,10 @@ def test_checkpoint_roundtrip(checkpoints, tmp_path):
     assert all(torch.equal(state[k], state2[k]) for k in state)
     with pytest.raises(ValueError, match="norm_stats"):
         StreamingPredictor(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamingPredictor(checkpoints[1], int8=True, device="cpu")
+    # int8 serving is ported: the checkpoint's convs become int8 sites
+    q = StreamingPredictor(checkpoints[1], int8=True, device="cpu")
+    assert q.int8 and q.int8_calib_blocks == 0
+    assert any(isinstance(m, QuantConv2d) for m in q.model.modules())
 
 
 def test_predictor_matches_jax_and_streams(checkpoints, predictor, frames):

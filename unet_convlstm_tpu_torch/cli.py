@@ -1,6 +1,6 @@
 """Command line (counterpart of unet_convlstm_tpu/cli.py; ``train``,
-``overfit``, ``gen-mnist``, ``serve``, ``bench`` and ``gen-renders`` so
-far).
+``evaluate``, ``rollout``, ``overfit``, ``gen-mnist``, ``serve``, ``bench``
+and ``gen-renders`` so far).
 
     python -m unet_convlstm_tpu_torch gen-mnist --out mm.npz --seq-len 10 \\
         --num-samples 2000 --xy
@@ -9,21 +9,34 @@ far).
     python -m unet_convlstm_tpu_torch train --config configs/mnist_small.json \\
         --npz mm.npz --resume ckpts/custom_last.pt epochs=3
     python -m unet_convlstm_tpu_torch overfit --npz mm.npz --base-ch 16
+    python -m unet_convlstm_tpu_torch evaluate --checkpoint ckpts/custom_best.pt \\
+        --npz mm.npz --out-dir eval_out --batch-size 32 [--int8 --int8-calib 2]
+    python -m unet_convlstm_tpu_torch rollout --checkpoint ckpts/custom_best.pt \\
+        --npz mm.npz --sequence-idx 2 --out roll.mp4 [--int8]
     python -m unet_convlstm_tpu_torch serve --checkpoint ckpts/custom_best.pt \\
-        --port 8000 --warmup 1x64x64
+        --port 8000 --warmup 1x64x64 [--int8 [--int8-calib-npz mm.npz]]
     python -m unet_convlstm_tpu_torch bench [--plain]
     python -m unet_convlstm_tpu_torch gen-renders --input patches \\
         --output renders --csv overpass.csv [--mc-spp 16]
 
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given. ``evaluate`` draws its
+figures and ``rollout`` its video where matplotlib (and cv2) are installed;
+otherwise each says what it did not draw and writes everything else.
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
+import functools
+import importlib.util
 import json
+import os
 import sys
 from typing import Dict, List, Optional
+
+MULTI_DEVICE = ("multi-device evaluation (--mesh-data > 1) is not ported "
+                "yet (ROADMAP.md, queue A item 7: multi-device)")
 
 
 def _parse_overrides(pairs: List[str]) -> Dict[str, str]:
@@ -54,6 +67,149 @@ def cmd_train(args) -> None:
     result = fit(cfg, profile_dir=args.profile_dir, resume_from=args.resume,
                  device=args.device)
     print(f"best val loss: {result['best_val_loss']:.6f}")
+
+
+def _load_checkpoint_for_eval(ckpt_path: str, device=None):
+    """A ``.pt`` checkpoint → (model on the device in eval mode, apply_fn
+    with both kernel flags on, init_state, meta, norm_stats or None)."""
+    import torch
+
+    from .core.dtypes import resolve_device
+    from .models.registry import build_model
+    from .ops.normalize import NormStats
+    from .train.checkpoint import restore_checkpoint
+
+    dev = resolve_device(device)
+    model_state, meta = restore_checkpoint(ckpt_path)
+    model_cfg = dict(meta["config"].get("model", meta["config"]))
+    _, init, apply_fn, init_state = build_model(model_cfg)
+    with torch.device("meta"):
+        model = init()
+    model.load_state_dict(model_state, strict=True, assign=True)
+    model = model.to(dev).eval()
+    # the training loop's binding (train/loop.py): the kernels on the card
+    apply_fn = functools.partial(apply_fn, use_pallas=True,
+                                 use_fused_doubleconv=True)
+    norm_stats = (NormStats.from_dict(meta["norm_stats"])
+                  if "norm_stats" in meta else None)
+    return model, apply_fn, init_state, meta, norm_stats
+
+
+def _calibration_batches(dataset, train_cfg, n_batches: int,
+                         batch_size: int, device):
+    """``n_batches`` normalized batches of the training split (the JAX
+    CLI's choice: consecutive windows of the replayed train indices)."""
+    import numpy as np
+    import torch
+
+    from .ops.normalize import normalize_x
+
+    tr_idx, _ = dataset.train_val_split(train_cfg.get("train_frac", 0.8),
+                                        train_cfg.get("split_seed", 42))
+    bs = min(batch_size, len(tr_idx))
+    out = []
+    for i in range(n_batches):
+        lo = (i * bs) % max(len(tr_idx) - bs + 1, 1)
+        xb, _ = dataset.get_batch_raw(np.asarray(tr_idx[lo:lo + bs]))
+        out.append(normalize_x(torch.from_numpy(np.asarray(xb)).to(device),
+                               dataset.stats))
+    return out, bs
+
+
+def cmd_evaluate(args) -> None:
+    """The metric suite (reference get_metrics.py) on the replayed
+    validation split: report.json and the figures."""
+    import numpy as np
+
+    from .data.npz_dataset import NPZSequenceDataset
+    from .eval.metrics import evaluate_model
+    from .ops.quant import calibrate_tree, quantize_model
+
+    if args.mesh_data > 1:
+        raise NotImplementedError(MULTI_DEVICE)
+    model, apply_fn, _, meta, norm_stats = _load_checkpoint_for_eval(
+        args.checkpoint, args.device)
+    if args.int8:
+        model = quantize_model(model)
+    dataset = NPZSequenceDataset(args.npz, stats=norm_stats)
+    indices = np.arange(len(dataset)) if args.split == "all" else None
+    # replay the TRAINING split exactly (its seed and fraction are in the
+    # checkpoint's config)
+    train_cfg = meta.get("config", {})
+    if args.int8 and args.int8_calib > 0:
+        dev = next(model.parameters()).device
+        calib, bs = _calibration_batches(dataset, train_cfg, args.int8_calib,
+                                         args.batch_size, dev)
+        model = calibrate_tree(apply_fn, model, calib)
+        print(f"int8: calibrated static activation scales on "
+              f"{args.int8_calib} train batches (B={bs})")
+    report = evaluate_model(apply_fn, model, dataset, indices=indices,
+                            batch_size=args.batch_size,
+                            use_mask=args.use_mask,
+                            train_frac=train_cfg.get("train_frac", 0.8),
+                            split_seed=train_cfg.get("split_seed", 42))
+    print(f"MAE={report.mae:.4f}  RMSE={report.rmse:.4f}  "
+          f"bias={report.bias:+.4f}  err_std={report.err_std:.4f} [m/s]")
+    os.makedirs(args.out_dir, exist_ok=True)
+    with open(os.path.join(args.out_dir, "report.json"), "w") as f:
+        json.dump(report.to_dict(), f, indent=2)
+    if importlib.util.find_spec("matplotlib") is None:
+        print("figures not drawn: matplotlib is not installed")
+        return
+    from .viz.figures import save_metrics_figures
+
+    written = save_metrics_figures(report, args.out_dir)
+    print(f"figures: {', '.join(sorted(written))} -> {args.out_dir}")
+
+
+def cmd_rollout(args) -> None:
+    """One sequence through the whole-sequence rollout: the per-frame
+    errors as CSV beside the video, and the dashboard video (reference
+    test.py)."""
+    import numpy as np
+    import torch
+
+    from .data.npz_dataset import NPZSequenceDataset
+    from .eval.rollout import frame_errors, rollout_scan
+    from .ops.normalize import compute_mask, denormalize_y, normalize_x
+    from .ops.quant import quantize_model
+
+    model, apply_fn, init_state, _, norm_stats = _load_checkpoint_for_eval(
+        args.checkpoint, args.device)
+    if args.int8:
+        model = quantize_model(model)
+    dev = next(model.parameters()).device
+    dataset = NPZSequenceDataset(args.npz, stats=norm_stats)
+    x_raw, _ = dataset.get_batch_raw(np.array([args.sequence_idx]))
+    s = dataset.stats
+    x = normalize_x(torch.from_numpy(np.asarray(x_raw)).to(dev), s)
+    y_pred, _ = rollout_scan(apply_fn, model, x, init_state)
+    pred_d = denormalize_y(y_pred.float(), s).cpu().numpy()
+    gt_d = np.asarray(dataset.denormalize(
+        np.asarray(dataset[args.sequence_idx][1])))
+    mask = compute_mask(torch.from_numpy(np.asarray(x_raw)), s).numpy()
+    gt0, pred0, mask0 = gt_d[:, 0], pred_d[0, ..., 0], mask[0, ..., 0]
+    stats = frame_errors(gt0, pred0, mask0)
+    csv_path = os.path.splitext(args.out)[0] + "_frames.csv"
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["t", "mae", "rmse", "me"])
+        for t in range(len(stats["mae"])):
+            w.writerow([t, stats["mae"][t], stats["rmse"][t],
+                        stats["me"][t]])
+    last = (f"last-frame MAE={stats['mae'][-1]:.4f} "
+            f"RMSE={stats['rmse'][-1]:.4f} ME={stats['me'][-1]:+.4f}")
+    missing = [m for m in ("matplotlib", "cv2")
+               if importlib.util.find_spec(m) is None]
+    if missing:
+        print(f"video not drawn: {' and '.join(missing)} not installed; "
+              f"per-frame errors -> {csv_path}; {last}")
+        return
+    from .viz.rollout_video import create_rollout_video
+
+    create_rollout_video(x_raw[0], gt0, pred0, mask0, args.out, fps=args.fps,
+                         csv_path=args.csv, per_frame_pdf_dir=args.pdf_dir)
+    print(f"video -> {args.out}; per-frame errors -> {csv_path}; {last}")
 
 
 def cmd_overfit(args) -> None:
@@ -98,8 +254,21 @@ def cmd_serve(args) -> None:
         warmup = tuple(int(v) for v in args.warmup.split("x"))
         if len(warmup) != 3:
             raise SystemExit("--warmup takes BxHxW, e.g. 1x128x128")
+    calib_frames = None
+    if args.int8 and args.int8_calib_npz:
+        import numpy as np
+
+        from .data.npz_dataset import NPZSequenceDataset
+
+        ds = NPZSequenceDataset(args.int8_calib_npz)
+        n = min(args.int8_calib, len(ds))
+        # raw frame blocks: the predictor normalizes them with its
+        # checkpoint's manifest
+        calib_frames = [ds.get_batch_raw(np.asarray([i]))[0]
+                        for i in range(n)]
     run_server(args.checkpoint, args.host, args.port, warmup=warmup,
-               device=args.device)
+               device=args.device, int8=args.int8,
+               int8_calib_frames=calib_frames)
 
 
 def cmd_bench(args) -> None:
@@ -153,6 +322,43 @@ def build_parser() -> argparse.ArgumentParser:
     _device_arg(t)
     t.set_defaults(fn=cmd_train)
 
+    e = sub.add_parser("evaluate",
+                       help="metric suite (reference get_metrics.py)")
+    e.add_argument("--checkpoint", required=True,
+                   help="a .pt checkpoint with a norm_stats manifest")
+    e.add_argument("--npz", required=True)
+    e.add_argument("--out-dir", default="eval_out")
+    e.add_argument("--batch-size", type=int, default=8)
+    e.add_argument("--use-mask", action="store_true")
+    e.add_argument("--split", choices=["val", "all"], default="val")
+    e.add_argument("--int8", action="store_true",
+                   help="post-training int8 inference (ops/quant.py): "
+                        "every conv int8 on the card's int8 kernel; the "
+                        "metrics move by quantization noise only")
+    e.add_argument("--int8-calib", type=int, default=0, metavar="N",
+                   help="with --int8: calibrate static per-conv activation "
+                        "scales on N train-split batches before evaluating")
+    e.add_argument("--mesh-data", type=int, default=1,
+                   help="data-parallel evaluation over N devices (not "
+                        "ported yet: N > 1 raises)")
+    _device_arg(e)
+    e.set_defaults(fn=cmd_evaluate)
+
+    r = sub.add_parser("rollout", help="rollout video (reference test.py)")
+    r.add_argument("--checkpoint", required=True)
+    r.add_argument("--npz", required=True)
+    r.add_argument("--sequence-idx", type=int, default=2000)
+    r.add_argument("--out", default="rollout.mp4",
+                   help="the video; the per-frame errors go to "
+                        "<out>_frames.csv")
+    r.add_argument("--fps", type=int, default=2)
+    r.add_argument("--csv", default=None, help="overpass CSV for geometry")
+    r.add_argument("--pdf-dir", default=None)
+    r.add_argument("--int8", action="store_true",
+                   help="post-training int8 inference (see evaluate)")
+    _device_arg(r)
+    r.set_defaults(fn=cmd_rollout)
+
     o = sub.add_parser("overfit",
                        help="memorization gate (reference overfit_check.py)")
     o.add_argument("--npz", required=True)
@@ -185,6 +391,14 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--port", type=int, default=8000)
     s.add_argument("--warmup", default="",
                    help="BxHxW geometry to run once before serving")
+    s.add_argument("--int8", action="store_true",
+                   help="post-training int8 inference (see evaluate)")
+    s.add_argument("--int8-calib-npz", default="", metavar="NPZ",
+                   help="with --int8: calibrate static activation scales "
+                        "on sequences from this dataset before serving")
+    s.add_argument("--int8-calib", type=int, default=4, metavar="N",
+                   help="number of calibration sequence blocks to draw "
+                        "from --int8-calib-npz (default 4)")
     _device_arg(s)
     s.set_defaults(fn=cmd_serve)
     b = sub.add_parser("bench", help="training frames/s (B=64, T=10, 64x64 "

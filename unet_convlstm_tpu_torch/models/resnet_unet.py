@@ -105,14 +105,14 @@ def _basic_block(blk: BasicBlock, x: torch.Tensor, train: bool,
     ns: Dict[str, Any] = {}
     # explicit symmetric pads: "SAME" pads (0, 1) under stride 2, torch's
     # resnet (1, 1)
-    y = conv2d(x, blk.conv1.weight, stride=blk.stride,
+    y = conv2d(x, blk.conv1, stride=blk.stride,
                padding=[(1, 1), (1, 1)], policy=policy)
     y, ns["bn1"] = batchnorm(blk.bn1, y, train)
     y = torch.relu(y)
-    y = conv2d(y, blk.conv2.weight, policy=policy)
+    y = conv2d(y, blk.conv2, policy=policy)
     y, ns["bn2"] = batchnorm(blk.bn2, y, train)
     if blk.downsample is not None:
-        sc = conv2d(x, blk.downsample[0].weight, stride=blk.stride,
+        sc = conv2d(x, blk.downsample[0], stride=blk.stride,
                     padding="VALID", policy=policy)
         sc, ns["down_bn"] = batchnorm(blk.downsample[1], sc, train)
     else:
@@ -126,7 +126,7 @@ def resnet18_encoder_apply(enc: ResNet18Encoder, x: torch.Tensor,
     """x [N, H, W, C] → 5 features at /2, /4, /8, /16, /32 and the new BN
     stats."""
     ns: Dict[str, Any] = {}
-    y = conv2d(x, enc.conv1.weight, stride=2, padding=[(3, 3), (3, 3)],
+    y = conv2d(x, enc.conv1, stride=2, padding=[(3, 3), (3, 3)],
                policy=policy)
     y, ns["bn1"] = batchnorm(enc.bn1, y, train)
     f1 = torch.relu(y)                                     # /2, 64
@@ -200,7 +200,7 @@ def decoder_apply(dec: UnetDecoder, head: Conv2d,
         # never fused: the JAX decoder does not pass fused=True
         # (unet_convlstm_tpu/models/resnet_unet.py:181-183)
         y, ns[f"block{i}"] = double_conv(blk, y, train, policy)
-    return conv2d(y, head.weight, head.bias, policy=policy), ns
+    return conv2d(y, head, policy=policy), ns
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,8 @@ back, as the JAX package threads them.
 
 ``fused=True`` runs a DoubleConv through the fused 3x3 conv kernel
 (ops/kernels/doubleconv_fused.py), as the JAX flag runs the Pallas one.
+The convs are passed to ``ops.conv`` as modules, so a model quantized by
+``ops/quant.quantize_model`` runs the same code on its int8 modules.
 """
 
 from __future__ import annotations
@@ -68,13 +70,19 @@ def double_conv(m: DoubleConv, x: torch.Tensor, train: bool,
         if min(c1, c2) >= 16 and kernel_supports(c1, c2, x_c.dtype):
             conv1_fused = cin >= 16 and kernel_supports(cin, c1, x_c.dtype)
             return _double_conv_fused(m, x_c, train, policy, conv1_fused)
-    y = conv2d(x, m.conv1.weight, m.conv1.bias, policy=policy)
+    y = conv2d(x, _conv_module(m.conv1), policy=policy)
     y, s1 = batchnorm(m.bn1, y, train)
     y = torch.relu(y)
-    y = conv2d(y, m.conv2.weight, m.conv2.bias, policy=policy)
+    y = conv2d(y, _conv_module(m.conv2), policy=policy)
     y, s2 = batchnorm(m.bn2, y, train)
     y = torch.relu(y)
     return y, {"bn1": s1, "bn2": s2}
+
+
+def _conv_module(c: nn.Module) -> nn.Module:
+    """The conv of a DoubleConv's ``conv1``/``conv2``: the module itself,
+    or item 0 of the ResNet decoder's Conv2dReLU (conv, BN, ReLU)."""
+    return c[0] if isinstance(c, nn.Sequential) else c
 
 
 def _double_conv_fused(m: DoubleConv, x_c: torch.Tensor, train: bool,
@@ -89,7 +97,7 @@ def _double_conv_fused(m: DoubleConv, x_c: torch.Tensor, train: bool,
         y1, s1, q1 = fused_conv3x3(x_c, policy.cast_param(m.conv1.weight),
                                    m.conv1.bias)
     else:
-        y1 = conv2d(x_c, m.conv1.weight, m.conv1.bias, policy=policy)
+        y1 = conv2d(x_c, _conv_module(m.conv1), policy=policy)
         s1 = q1 = None
         if train:
             y1f = y1.float()
@@ -135,8 +143,7 @@ class Up(nn.Module):
 def up(m: Up, x_deep: torch.Tensor, x_skip: torch.Tensor, train: bool,
        policy: Policy = DEFAULT_POLICY, fused: bool = False):
     """x_deep: coarse feature to upsample; x_skip: encoder skip (NHWC)."""
-    x1 = conv_transpose2d(x_deep, m.up.weight, m.up.bias, stride=2,
-                          policy=policy)
+    x1 = conv_transpose2d(x_deep, m.up, stride=2, policy=policy)
     # center-pad x1 to the skip: dh//2 on top, dh - dh//2 on the bottom
     dh = x_skip.shape[1] - x1.shape[1]
     dw = x_skip.shape[2] - x1.shape[2]
@@ -159,7 +166,7 @@ class OutConv(nn.Module):
 
 
 def out_conv(m: OutConv, x: torch.Tensor, policy: Policy = DEFAULT_POLICY):
-    return conv2d(x, m.conv.weight, m.conv.bias, policy=policy)
+    return conv2d(x, m.conv, policy=policy)
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +184,6 @@ def spatial_attention(m: SpatialAttention, x: torch.Tensor,
                       policy: Policy = DEFAULT_POLICY):
     avg = x.mean(dim=-1, keepdim=True)
     mx = x.amax(dim=-1, keepdim=True)
-    gate = torch.sigmoid(conv2d(torch.cat([avg, mx], dim=-1), m.conv.weight,
+    gate = torch.sigmoid(conv2d(torch.cat([avg, mx], dim=-1), m.conv,
                                 policy=policy))
     return x * gate.to(x.dtype)

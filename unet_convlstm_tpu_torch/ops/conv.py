@@ -8,13 +8,16 @@ NHWC tensor as an NCHW tensor in channels-last memory format, so cuDNN
 reads and writes channels-last and no layout copy is made.
 
 These stay on torch's own convolutions: the JAX package leaves them to XLA,
-outside any Pallas kernel.
+outside any Pallas kernel. ``conv2d`` and ``conv_transpose2d`` take either
+a weight tensor (and bias) or the conv module itself; a module holding int8
+weights (``ops/quant.quantize_model``) goes to the int8 path, K8 on the
+card, as the JAX functions dispatch on ``w_q``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -104,26 +107,41 @@ def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv2d(x: torch.Tensor, weight: torch.Tensor,
+def resolve_pads(hw: Tuple[int, int], kernel: Tuple[int, int], stride: int,
+                 padding: Padding) -> List[Tuple[int, int]]:
+    """[(top, bottom), (left, right)] for "SAME", "VALID", an int or
+    explicit pairs."""
+    if padding == "SAME":
+        return [_same_pads(hw[0], kernel[0], stride),
+                _same_pads(hw[1], kernel[1], stride)]
+    if padding == "VALID":
+        return [(0, 0), (0, 0)]
+    if isinstance(padding, int):
+        return [(padding, padding), (padding, padding)]
+    return [tuple(p) for p in padding]
+
+
+def conv2d(x: torch.Tensor, weight: Union[torch.Tensor, nn.Module],
            bias: Optional[torch.Tensor] = None, stride: int = 1,
            padding: Padding = "SAME",
            policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
-    """NHWC conv with an OIHW weight. ``padding``: "SAME", "VALID", an int,
-    or explicit [(lo, hi), (lo, hi)]. The output stays in the compute
-    dtype and the bias is added in that dtype after the conv, as in the
-    JAX package (not inside cuDNN's f32 epilogue)."""
+    """NHWC conv with an OIHW weight, or with a conv module (its weight
+    and bias). ``padding``: "SAME", "VALID", an int, or explicit [(lo,
+    hi), (lo, hi)]. The output stays in the compute dtype and the bias is
+    added in that dtype after the conv, as in the JAX package (not inside
+    cuDNN's f32 epilogue). A module with int8 weights runs
+    ``ops.quant.conv2d_int8``."""
+    if isinstance(weight, nn.Module):
+        if not weight.weight.is_floating_point():
+            from .quant import conv2d_int8
+            pads = resolve_pads(x.shape[1:3], weight.weight.shape[2:],
+                                stride, padding)
+            return conv2d_int8(weight, x, stride, pads,
+                               out_dtype=policy.compute_dtype)
+        weight, bias = weight.weight, weight.bias
     w = policy.cast_param(weight)
     x = policy.cast_input(x)
-    kh, kw = w.shape[2], w.shape[3]
-    if padding == "SAME":
-        pads = [_same_pads(x.shape[1], kh, stride),
-                _same_pads(x.shape[2], kw, stride)]
-    elif padding == "VALID":
-        pads = [(0, 0), (0, 0)]
-    elif isinstance(padding, int):
-        pads = [(padding, padding), (padding, padding)]
-    else:
-        pads = [tuple(p) for p in padding]
+    pads = resolve_pads(x.shape[1:3], w.shape[2:], stride, padding)
     xt = _to_nchw(x)
     (ph0, ph1), (pw0, pw1) = pads
     if ph0 == ph1 and pw0 == pw1:
@@ -143,11 +161,19 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
 # ConvTranspose2d (kernel 2, stride 2: the UNet decoder upsampler)
 # ---------------------------------------------------------------------------
 
-def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,
+def conv_transpose2d(x: torch.Tensor, weight: Union[torch.Tensor, nn.Module],
                      bias: Optional[torch.Tensor] = None, stride: int = 2,
                      policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
-    """NHWC transposed conv, weight [in, out, kh, kw]; for kernel = stride
-    = 2 it doubles H and W. Bias added in the compute dtype."""
+    """NHWC transposed conv, weight [in, out, kh, kw] or a transposed-conv
+    module; for kernel = stride = 2 it doubles H and W. Bias added in the
+    compute dtype. A module with int8 weights runs
+    ``ops.quant.conv_transpose2d_int8``."""
+    if isinstance(weight, nn.Module):
+        if not weight.weight.is_floating_point():
+            from .quant import conv_transpose2d_int8
+            return conv_transpose2d_int8(weight, x, stride,
+                                         out_dtype=policy.compute_dtype)
+        weight, bias = weight.weight, weight.bias
     w = policy.cast_param(weight)
     x = policy.cast_input(x)
     with policy.precision():

@@ -9,6 +9,9 @@
   (``lax.scan`` in the JAX package).
 * ``use_pallas=True`` runs the gate update through the hand-written kernel
   (ops/kernels/convlstm_fused.py), as the JAX flag runs the Pallas one.
+* A cell quantized by ``ops/quant.quantize_model`` (int8 weights) runs the
+  concatenated [x, h] gate conv through the int8 path every step, with no
+  hoisted input projection, and its gate update as a float cell does.
 """
 
 from __future__ import annotations
@@ -72,13 +75,14 @@ def _h_dtype(policy: Policy) -> torch.dtype:
     return policy.compute_dtype
 
 
-def convlstm_cell_step(weight: torch.Tensor, bias: Optional[torch.Tensor],
+def convlstm_cell_step(weight, bias: Optional[torch.Tensor],
                        x: torch.Tensor, carry: Carry,
                        policy: Policy = DEFAULT_POLICY,
                        use_pallas: bool = False
                        ) -> Tuple[torch.Tensor, Carry]:
     """One recurrent step. x [B,H,W,Cin]; carry h, c [B,H,W,hidden];
-    weight [4*hidden, Cin+hidden, k, k]."""
+    weight [4*hidden, Cin+hidden, k, k], or the cell's conv module (an
+    int8 one runs the int8 conv; ``bias`` is then None)."""
     h, c = carry
     gates = conv2d(torch.cat([x, h.to(x.dtype)], dim=-1), weight, bias,
                    policy=policy)
@@ -112,7 +116,8 @@ def convlstm(module: ConvLSTM, x_seq: torch.Tensor,
     ``state`` carries one (h, c) per layer across calls (streaming); it is
     coerced to h in the compute dtype and c in f32."""
     T, B, H, W, _ = x_seq.shape
-    hidden = module.hidden_dim
+    # from the gate conv's weight, float or int8: [4*hidden, in+hidden, k, k]
+    hidden = module.layers[0].conv.weight.shape[0] // 4
     if state is None:
         state = [(torch.zeros((B, H, W, hidden), dtype=_h_dtype(policy),
                               device=x_seq.device),
@@ -130,13 +135,21 @@ def convlstm(module: ConvLSTM, x_seq: torch.Tensor,
     # activations the convs see) once per call, not once per step
     cl = torch.channels_last
     for cell, carry in zip(module.layers, state):
-        w = policy.cast_param(cell.conv.weight)   # [4h, in+h, k, k]
-        b = policy.cast_param(cell.conv.bias)
-        in_dim = w.shape[1] - hidden
-        w_x_bytes = w.shape[2] * w.shape[3] * in_dim * w.shape[0] * itemsize
-        gate_step_bytes = B * H * W * 4 * hidden * itemsize
         steps = []
-        if _hoist_input_projection(w_x_bytes, gate_step_bytes):
+        if not cell.conv.weight.is_floating_point():
+            # int8 cell: the scales must reach the conv, and the hoist
+            # slices a float kernel, so every step runs the concatenated
+            # conv through the int8 path (the JAX package does the same)
+            w, b, hoist = cell.conv, None, False
+        else:
+            w = policy.cast_param(cell.conv.weight)   # [4h, in+h, k, k]
+            b = policy.cast_param(cell.conv.bias)
+            in_dim = w.shape[1] - hidden
+            w_x_bytes = (w.shape[2] * w.shape[3] * in_dim * w.shape[0]
+                         * itemsize)
+            gate_step_bytes = B * H * W * 4 * hidden * itemsize
+            hoist = _hoist_input_projection(w_x_bytes, gate_step_bytes)
+        if hoist:
             # conv is linear in its input channels:
             # conv(concat(x, h), W) + b == conv(x, W_x) + b + conv(h, W_h)
             w_x = w[:, :in_dim].contiguous(memory_format=cl)
@@ -152,7 +165,8 @@ def convlstm(module: ConvLSTM, x_seq: torch.Tensor,
                 carry = (h_next, c_next)
                 steps.append(h_next)
         else:
-            w = w.contiguous(memory_format=cl)
+            if isinstance(w, torch.Tensor):
+                w = w.contiguous(memory_format=cl)
             for t in range(T):
                 h_t, carry = convlstm_cell_step(w, b, out[t], carry, policy,
                                                 use_pallas)

@@ -3,16 +3,16 @@ version (counterpart of unet_convlstm_tpu/ops/pallas/).
 
 Each wrapper counts its kernel launches in a plain integer on its module;
 ``launch_counts`` reads them and ``reset_launches`` sets them to 0, with
-the gate update forward's and the fused conv's counts by route
-(``convlstm_fused.launches_by_route``,
-``doubleconv_fused.launches_by_route``).
+the gate update forward's, the fused conv's and the int8 conv's counts by
+route (``convlstm_fused.launches_by_route``,
+``doubleconv_fused.launches_by_route``, ``conv_int8.launches_by_route``).
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from . import (chained_gather, channel_stats, convlstm_fused,
+from . import (chained_gather, channel_stats, conv_int8, convlstm_fused,
                doubleconv_fused, mc_sampler)
 
 # kernel name → (module, the integer that counts its launches)
@@ -23,7 +23,8 @@ KERNEL_COUNTERS = {"gate_update": (convlstm_fused, "launches"),
                    "mc_sample_flights_uniforms": (mc_sampler,
                                                   "uniforms_launches"),
                    "channel_sum_sumsq": (channel_stats, "launches"),
-                   "chained_gather": (chained_gather, "launches")}
+                   "chained_gather": (chained_gather, "launches"),
+                   "conv_int8": (conv_int8, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -35,6 +36,7 @@ def reset_launches() -> None:
     for m, attr in KERNEL_COUNTERS.values():
         setattr(m, attr, 0)
     for by_route in (convlstm_fused.launches_by_route,
-                     doubleconv_fused.launches_by_route):
+                     doubleconv_fused.launches_by_route,
+                     conv_int8.launches_by_route):
         for route in by_route:
             by_route[route] = 0

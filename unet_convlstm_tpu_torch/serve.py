@@ -24,6 +24,11 @@ The step runs the model with both hand-written kernel flags on (the ConvLSTM
 gate update and the fused 3x3 conv; the ResNet18 family's decoder does not
 fuse, as in the JAX package), under ``torch.inference_mode()``.
 Device work is serialized with a lock (one card, many HTTP threads).
+
+``int8=True`` serves the post-training int8 model (``ops/quant.py``): every
+conv int8 on the card's int8 kernel (K8) with dynamic activation scales, or
+static ones calibrated on ``int8_calib_frames`` (raw [B, T, H, W, C] frame
+blocks, normalized with the checkpoint's manifest before calibrating).
 """
 
 from __future__ import annotations
@@ -40,10 +45,8 @@ import torch
 from .core.dtypes import DEFAULT_POLICY, resolve_device
 from .models.registry import build_model
 from .ops.normalize import NormStats, denormalize_y, normalize_x
+from .ops.quant import calibrate_tree, quantize_model
 from .train.checkpoint import restore_checkpoint
-
-INT8_TODO = ("int8 serving is not ported to unet_convlstm_tpu_torch yet "
-             "(ROADMAP.md, queue A item 6: int8)")
 
 
 @dataclass
@@ -67,9 +70,7 @@ class StreamingPredictor:
     """Checkpoint-backed stateful streaming inference engine."""
 
     def __init__(self, checkpoint_path: str, int8: bool = False,
-                 device=None):
-        if int8:
-            raise NotImplementedError(INT8_TODO)
+                 device=None, int8_calib_frames=None):
         self.device = resolve_device(device)
         self.policy = DEFAULT_POLICY
         model_state, meta = restore_checkpoint(checkpoint_path)
@@ -86,6 +87,20 @@ class StreamingPredictor:
                 "checkpoint has no normalization manifest (norm_stats): it "
                 "cannot map raw frames to model inputs; re-save it with one")
         self.norm_stats = NormStats.from_dict(meta["norm_stats"])
+        self.int8 = int8
+        self.int8_calib_blocks = 0     # calibrated static scales when > 0
+        if int8:
+            self.model = quantize_model(self.model)
+            if int8_calib_frames is not None:
+                # materialized before anything takes its length: a
+                # generator is consumed once
+                frames = list(int8_calib_frames)
+                batches = [normalize_x(self._to_device(b), self.norm_stats)
+                           for b in frames]
+                self.model = calibrate_tree(
+                    self._apply_fn, self.model, batches, policy=self.policy,
+                    use_pallas=True, use_fused_doubleconv=True)
+                self.int8_calib_blocks = len(frames)
         self._sessions: Dict[str, _Session] = {}
         self._sessions_lock = threading.Lock()
         self._device_lock = threading.Lock()
@@ -372,8 +387,13 @@ def serve_http(predictor: StreamingPredictor, host: str = "127.0.0.1",
 
 def run_server(checkpoint: str, host: str, port: int,
                warmup: Optional[Tuple[int, int, int]] = None,
-               device=None) -> None:
-    predictor = StreamingPredictor(checkpoint, device=device)
+               device=None, int8: bool = False,
+               int8_calib_frames=None) -> None:
+    predictor = StreamingPredictor(checkpoint, int8=int8, device=device,
+                                   int8_calib_frames=int8_calib_frames)
+    if predictor.int8_calib_blocks:
+        print("int8: static activation scales calibrated "
+              f"({predictor.int8_calib_blocks} frame blocks)")
     if warmup:
         print(f"warmup {warmup} ...")
         predictor.warmup(*warmup)

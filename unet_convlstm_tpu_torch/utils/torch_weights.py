@@ -19,6 +19,13 @@ cache's places.
 
 Layouts: conv kernels HWIO → OIHW (``transpose(3, 2, 0, 1)``); transposed-
 conv kernels HWOI (``wt``) → torch's (in, out, kh, kw), the same transpose.
+
+An int8-quantized JAX tree (``quantize_tree``, optionally with calibrated
+``x_s``) carries across too: ``w_q``/``wt_q`` become the int8 ``weight``
+in the same layouts, ``w_s``/``wt_s`` the ``w_s`` buffer and ``x_s`` the
+``x_s`` buffer of the port's ``QuantConv2d``/``QuantConvTranspose2d``;
+``ops.quant.load_quantized_state_dict`` loads the result into a model from
+``quantize_model``.
 """
 
 from __future__ import annotations
@@ -40,8 +47,23 @@ def _hwio_to_oihw(w) -> torch.Tensor:
                                                 (3, 2, 0, 1))))
 
 
+def _int8_to_oihw(w) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(
+        np.asarray(w, np.int8), (3, 2, 0, 1))))
+
+
 def _conv(out: Dict[str, torch.Tensor], prefix: str, p) -> None:
-    out[f"{prefix}.weight"] = _hwio_to_oihw(p["w"])
+    """A conv leaf, float (``w``) or int8 (``w_q``, ``w_s``, ``x_s``), or
+    a transposed one (``wt``, or ``wt_q``, ``wt_s``, ``x_s``)."""
+    q = "w_q" if "w_q" in p else "wt_q" if "wt_q" in p else None
+    if q is None:
+        out[f"{prefix}.weight"] = _hwio_to_oihw(p["wt"] if "wt" in p
+                                                else p["w"])
+    else:
+        out[f"{prefix}.weight"] = _int8_to_oihw(p[q])
+        out[f"{prefix}.w_s"] = _t(p["w_s" if q == "w_q" else "wt_s"])
+        if "x_s" in p:
+            out[f"{prefix}.x_s"] = _t(p["x_s"])
     if "b" in p:
         out[f"{prefix}.bias"] = _t(p["b"])
 
@@ -84,13 +106,9 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         _convlstm(out, "lstm_skip3", p["skip3"])
         _convlstm(out, "lstm_skip2", p["skip2"])
     if "attention" in p:
-        out["attention.conv.weight"] = _hwio_to_oihw(p["attention"]["w"])
+        _conv(out, "attention.conv", p["attention"])
     for name in ("up3", "up2", "up1", "up0"):
-        u = p[name]["up"]
-        out[f"{name}.up.weight"] = _hwio_to_oihw(u["wt"] if "wt" in u
-                                                 else u["w"])
-        if "b" in u:
-            out[f"{name}.up.bias"] = _t(u["b"])
+        _conv(out, f"{name}.up", p[name]["up"])
         _double_conv(out, f"{name}.conv", p[name]["conv"], s[name]["conv"])
     _conv(out, "outc.conv", p["outc"])
     return out
