@@ -79,14 +79,17 @@ non-zero:
               exact K1 and K2 launch counts.
 13. int8    — post-training int8 at scripts/perf/bench_int8.py's geometry
               (base_ch 64, 128x128, T=12, B=8): quantize_model of a seeded
-              checkpoint, one forward's exact K8 and K1 launches and no K2,
+              checkpoint, one forward's exact K8 (by route, every call on
+              the quantizing entry) and K1 launches and no K2,
               K8 against its plain version through the whole forward,
               int8 against bf16 (the JAX test's 0.06 PTQ bound with
               BatchNorm at init; with calibrated BatchNorm reported),
               calibrate_tree on 4 batches, int8 serving (dynamic, and
               calibrated on frame blocks given as a generator) with one
               HTTP round trip, forward time, request latency and a
-              profiled request of int8 dynamic, int8 calibrated and bf16,
+              profiled request of int8 dynamic, int8 calibrated and bf16
+              (the calibrated request runs no round or two-sided clamp
+              kernel beyond the bf16 request's: the quantizer is in K8),
               ``evaluate --int8 --int8-calib 2`` through the CLI on phase
               9's checkpoint (its MAE against the bf16 one; dynamic int8
               through evaluate_model with K8 equal to it with K8's plain
@@ -105,11 +108,17 @@ longest line it takes along each axis, beside its latency floor (one
 block's 64 dependent shared loads), and the int8 conv (K8) at every
 distinct conv shape of the two int8 paths (phase 13's forward and the
 ResNet18 family's int8 request) and at ragged shapes (Cin 2 and 20 on the
-byte-gather loader, Cin 48, odd H and W, stride 2 on an odd input, Cout 1,
-an odd transposed conv), bit-equal to its plain version in f32 and bf16,
-each timed beside cuDNN's bf16 conv at the shape (a reference point, not
-the same function). The main-path phases count K1's launches by route
-(all on the vector route) as they do K2's.
+byte-gather loader, Cout 1, 12 and 30 on the vec loader; on the wgmma route
+Cin 16 and 48, pixel and column counts off the tile, split K, stride 2 on
+an odd input, odd transposed convs) and on an x off a 16-byte boundary:
+both entries (an int8 x; a bf16 or f32 x quantized in the kernel with a
+static or a dynamic scale) bit-equal to their plain versions in f32 and
+bf16, each shape timed (the quantizing entry on a bf16 x with a calibrated
+static scale, as the calibrated main path calls it; its dynamic and
+int8-input variants) beside cuDNN's bf16 conv at the shape and
+torch._int_mm at the GEMM's (M, N, K) (reference points, not the same
+function). The main-path phases count K1's launches by route (all on the
+vector route) as they do K2's, and phase 13 K8's by route and by entry.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, {"kernels": [...]}, and {"ok": true, "device": {"platform":
@@ -389,24 +398,26 @@ def phase_device():
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "build_wall_s": time.perf_counter() - t0})
-    emit(dict(phase="ptxas", source="conv3x3_fused.cu", **ptxas_report(
-        (build.build_dir() / "conv3x3_fused.log").read_text())))
+    for src in ("conv3x3_fused", "conv_int8"):
+        emit(dict(phase="ptxas", source=f"{src}.cu", **ptxas_report(
+            (build.build_dir() / f"{src}.log").read_text(), src)))
     return smi
 
 
-def ptxas_report(log: str) -> dict:
-    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
-    log, and the count of C7517 warnings (a wgmma wait the compiler
-    injected, which serialises the asynchronous products)."""
+def ptxas_report(log: str, prefix: str = "conv3x3_fused") -> dict:
+    """Registers and spill bytes of each kernel whose name starts with
+    ``prefix`` in an ``nvcc -Xptxas -v`` log, and the count of C7517
+    warnings (a wgmma wait the compiler injected, which serialises the
+    asynchronous products)."""
     kernels, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d(conv3x3_fused_\w+?"
-                      r"_kernel)(I\w+?EE)?", line)
+        m = re.search(r"Compiling entry function '\w*?\d(" + prefix
+                      + r"\w*?_kernel)(I\w+?EE)?", line)
         if m:   # template arguments: ints and bools as values, types named
-            args = re.findall(r"^I(f)|(bfloat16)|Li(\d+)E|Lb(\d)E",
-                              m.group(2) or "")
-            args = [("f32" if f else "bf16" if b else i or t)
-                    for f, b, i, t in args]
+            args = re.findall(r"Li(\d+)E|Lb(\d)E|(13__nv_bfloat16)|(f)|(a)",
+                              (m.group(2) or "")[1:])
+            args = [i or t or ("bf16" if b else "f32" if f else "s8")
+                    for i, t, b, f, _ in args]
             name = m.group(1) + ("<" + ",".join(args) + ">" if args else "")
         spill = re.search(r"(\d+) bytes spill stores", line)
         regs = re.search(r"Used (\d+) registers", line)
@@ -1176,17 +1187,36 @@ K8_CUSTOM = k8_custom_convs(BASE, HW, IB, IT)
 K8_RESNET = k8_resnet_convs(HW, B, T, 2)
 K8_PER_FORWARD = sum(c[-1] for c in K8_CUSTOM)
 K8_RESNET_PER_REQUEST = sum(c[-1] for c in K8_RESNET)
-# where the kernel's loaders and edges are not those of the main paths
+# where the kernel's routes, loaders and edges are not those of the main
+# paths: the first design's loaders (Cin 2 and 20 gathered, Cout 1, 12 and
+# 30 on the vec loader), and on the wgmma route Cin 16 and 48 (the last K
+# chunk half zero), pixel counts not a multiple of 128, column counts not a
+# multiple of the tile (72, 520, 96 and 32 transposed, 8, 24), K of one
+# chunk, stride 2 on an odd input, split K (Cin 48, 256 -> 520, 256 -> 64)
+# and the halo mode of a float x on odd maps whose tiles straddle images
 K8_RAGGED = [("conv", 2, 17, 15, 2, 64, 3, 1, 1, 0),    # Cin 2, odd H, W
              ("conv", 2, 17, 15, 20, 40, 3, 1, 1, 0),   # Cin 20: gather
-             ("conv", 2, 17, 15, 48, 72, 3, 1, 1, 0),   # Cin 48: half step
+             ("conv", 2, 17, 15, 48, 72, 3, 1, 1, 0),   # Cin 48: split K
              ("conv", 3, 15, 13, 64, 128, 1, 2, 0, 0),  # stride 2, odd in
              ("conv", 2, 33, 31, 2, 64, 7, 2, 3, 0),    # stem, odd in
              ("conv", 2, 16, 16, 2, 1, 7, 1, 3, 0),     # attention, Cout 1
-             ("up2", 1, 5, 7, 48, 24, 2, 2, 0, 0)]      # odd transposed
-K8_TOL = ("bit-equal to the plain version in f32 and bf16: both round the "
-          "same exact int32 to f32 and apply the scale and the bias as two "
-          "separately rounded f32 operations")
+             ("up2", 1, 5, 7, 48, 24, 2, 2, 0, 0),      # odd transposed
+             ("conv", 2, 9, 11, 16, 16, 3, 1, 1, 0),    # Cin 16: K 144
+             ("conv", 1, 5, 5, 256, 520, 3, 1, 1, 0),   # M 25, split K
+             ("conv", 3, 7, 9, 32, 8, 1, 1, 0, 0),      # K 32, 8 columns
+             ("up2", 2, 3, 5, 64, 8, 2, 2, 0, 0),       # 32 columns
+             ("conv", 2, 12, 12, 16, 12, 3, 1, 1, 0),   # Cout 12: vec
+             ("conv", 2, 9, 9, 64, 30, 3, 1, 1, 0),     # vec, 64-byte steps
+             ("conv", 3, 13, 11, 32, 24, 3, 1, 1, 0),   # halo across images
+             ("conv", 1, 6, 6, 256, 64, 3, 1, 1, 0)]    # halo, split K
+K8_TOL = ("bit-equal to the plain version in f32 and bf16, both entries (an "
+          "int8 x; a bf16 or f32 x quantized with a static or a dynamic "
+          "scale): both quantize as clamp(round-half-even(x / x_s)) after "
+          "one IEEE division, round the same exact int32 to f32 and apply "
+          "the scale and the bias as two separately rounded f32 operations")
+K8_STATIC_XS = 2.0 ** -7  # a power of two: x / x_s exact, so bf16 inputs
+#                           fall on rounding midpoints, and |x| > 127 x_s
+#                           (about a third of N(0, 1)) is clamped
 INT8_PTQ_BOUND = 0.06     # int8 against bf16, relative L2, on the seeded
 #                           model with its BatchNorm statistics at init:
 #                           the JAX test's bound and condition (a fresh
@@ -1212,9 +1242,33 @@ INT8_EVAL_SANITY = 2.0    # evaluate --int8: at most 2x the bf16 MAE, a
 INT8_PLAIN_TOL = 1e-5     # int8 forward, K8 against its plain version, f32
 
 
+def _k8_pads(pad):
+    return ((pad, pad), (pad, pad))
+
+
+def k8_plan(kind, n, h, w, cin, cout, k, stride, pad,
+            x_dtype=torch.bfloat16):
+    """K8's plan of one conv of a pass (``conv_int8.conv_plan``)."""
+    if kind == "up2":
+        return conv_int8.conv_plan((n, h, w, cin), (cin, cout, 2, 2), 2,
+                                   _k8_pads(0), x_dtype, transposed=True)
+    return conv_int8.conv_plan((n, h, w, cin), (cout, cin, k, k), stride,
+                               _k8_pads(pad), x_dtype)
+
+
+def k8_route_counts(convs, x_dtype=torch.bfloat16):
+    """K8's launches of one pass by route, from the planner."""
+    out = dict.fromkeys(conv_int8.ROUTES, 0)
+    for c in convs:
+        out[k8_plan(*c[:-1], x_dtype=x_dtype).route] += c[-1]
+    return out
+
+
 def _k8_args(gen, kind, n, h, w, cin, cout, k, bias=True):
-    x = torch.randint(-127, 128, (n, h, w, cin), generator=gen, device=DEV,
-                      dtype=torch.int8)
+    """(x float32 N(0, 1), x_q int8, w_q, w_s, x_s, bias) on the card."""
+    x = torch.randn((n, h, w, cin), generator=gen, device=DEV)
+    xq = torch.randint(-127, 128, (n, h, w, cin), generator=gen, device=DEV,
+                       dtype=torch.int8)
     if kind == "up2":
         wq = torch.randint(-127, 128, (cin, cout, 2, 2), generator=gen,
                            device=DEV, dtype=torch.int8)
@@ -1225,16 +1279,19 @@ def _k8_args(gen, kind, n, h, w, cin, cout, k, bias=True):
     ws = torch.rand(cout, generator=gen, device=DEV) * 1e-3 + 1e-5
     xs = torch.rand((), generator=gen, device=DEV) * 0.05 + 1e-3
     b = torch.randn(cout, generator=gen, device=DEV) if bias else None
-    return x, wq, ws, xs, b
+    return x, xq, wq, ws, xs, b
 
 
-def _k8_call(kind, stride, pad, dtype):
-    pads = ((pad, pad), (pad, pad))
+def _k8_call(kind, stride, pad, dtype, quant=False):
+    """K8 as the wrapper a conv of ``kind`` calls: fn(x, w_q, w_s, x_s, b)
+    with an int8 x, or with ``quant`` a float x (x_s None: dynamic)."""
     if kind == "up2":
-        return lambda x, wq, ws, xs, b: conv_int8.conv_transpose_int8(
-            x, wq, ws, xs, b, 2, dtype)
-    return lambda x, wq, ws, xs, b: conv_int8.conv_int8(
-        x, wq, ws, xs, b, stride, pads, dtype)
+        fn = (conv_int8.conv_transpose_int8_quant if quant
+              else conv_int8.conv_transpose_int8)
+        return lambda x, wq, ws, xs, b: fn(x, wq, ws, xs, b, 2, dtype)
+    fn = conv_int8.conv_int8_quant if quant else conv_int8.conv_int8
+    return lambda x, wq, ws, xs, b: fn(x, wq, ws, xs, b, stride,
+                                       _k8_pads(pad), dtype)
 
 
 def _k8_gemm(kind, x_shape, cout, k, stride, pad):
@@ -1259,82 +1316,212 @@ def _k8_library(kind, stride, pad):
     return run
 
 
+def _int_mm_ms(gen, m_, n_, k_):
+    """torch._int_mm (cuBLASLt's int8 tensor-core GEMM) at (M, N, K) on an
+    A already im2col'd, timed without the im2col: the GEMM alone, not the
+    same function. None where its shape rules refuse the shape (M > 16, K
+    and N multiples of 8)."""
+    if m_ <= 16 or k_ % 8 or n_ % 8:
+        return None, "refused by _int_mm's shape rules"
+    def make():
+        a = torch.randint(-127, 128, (m_, k_), generator=gen, device=DEV,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (n_, k_), generator=gen, device=DEV,
+                          dtype=torch.int8)
+        return a, b.t()
+    try:
+        return device_ms(torch._int_mm, copies(make, m_ * k_ + n_ * k_)), \
+            None
+    except RuntimeError as e:
+        return None, str(e)[:120]
+
+
+def _k8_equal(fn, args):
+    """(bit-equal, max |difference|) of K8 and its plain version."""
+    y = fn(*args)
+    with conv_int8.plain_reference():
+        ref = fn(*args)
+    torch.cuda.synchronize()
+    view = torch.int32 if y.dtype == torch.float32 else torch.int16
+    err = float((y.float() - ref.float()).abs().max()) if y.numel() else 0.0
+    return torch.equal(y.view(view), ref.view(view)), err
+
+
 def check_k8(gen, convs, path, timed=True):
-    """K8 against its plain version at each shape, in f32 and bf16 (bit
-    equality), and, where ``timed``, its device time against the plain
-    version's, cuDNN's bf16 conv at the shape and the bound. Returns the
-    totals of one pass (each shape's numbers times its launches)."""
+    """K8 against its plain version at each shape (bit equality): the int8
+    entry in f32 and bf16, and the quantizing entry on a bf16 and an f32 x
+    with a static and a dynamic scale, in f32 and bf16; where ``timed``,
+    the device time of the main path's call (quantizing entry, bf16 x,
+    static scale, bf16 y), of its dynamic and int8-input variants, the
+    plain version's, cuDNN's bf16 conv at the shape, torch._int_mm at the
+    GEMM's (M, N, K), and the bound. Returns the totals of one pass (each
+    shape's numbers times its launches)."""
     tot = collections.Counter()
     worst = 0.0
+    int_mm_null = 0
     for kind, n, h, w, cin, cout, k, stride, pad, per in convs:
-        args = _k8_args(gen, kind, n, h, w, cin, cout, k)
+        x, xq, wq, ws, xs, b = _k8_args(gen, kind, n, h, w, cin, cout, k)
         line = {"phase": "kernel", "kernel": "conv_int8", "path": path,
                 "kind": kind, "N": n, "H": h, "W": w, "cin": cin,
                 "cout": cout, "k": k, "stride": stride, "pad": pad,
                 "launches_per_pass": per}
+        quant = {}
+        errs = []
+        static = torch.tensor(K8_STATIC_XS, device=DEV)
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            fn = _k8_call(kind, stride, pad, dtype)
-            y = fn(*args)
-            with conv_int8.plain_reference():
-                ref = fn(*args)
-            torch.cuda.synchronize()
-            view = torch.int32 if dtype == torch.float32 else torch.int16
-            line[f"bit_equal_{tag}"] = torch.equal(y.view(view),
-                                                   ref.view(view))
-            err = float((y.float() - ref.float()).abs().max()) if y.numel() \
-                else 0.0
-            worst = max(worst, err)
-            line[f"max_abs_err_{tag}"] = err
-        x, wq, *_ = args
-        w_gemm = wq.permute(0, 2, 3, 1) if kind == "conv" else wq
-        line["route"] = conv_int8.route_for(x, w_gemm.contiguous())
-        ok = line["bit_equal_f32"] and line["bit_equal_bf16"]
+            eq, err = _k8_equal(_k8_call(kind, stride, pad, dtype),
+                                (xq, wq, ws, xs, b))
+            line[f"bit_equal_{tag}"] = eq
+            errs.append(err)
+            for xdt, xtag in ((torch.bfloat16, "bf16"),
+                              (torch.float32, "f32")):
+                xin = x.to(xdt)
+                for scale, stag in ((static, "static"), (None, "dynamic")):
+                    eq, err = _k8_equal(
+                        _k8_call(kind, stride, pad, dtype, quant=True),
+                        (xin, wq, ws, scale, b))
+                    quant[f"x_{xtag}_{stag}_y_{tag}"] = eq
+                    errs.append(err)
+        line["bit_equal_quant"] = quant
+        line["max_abs_err"] = max(errs)
+        worst = max(worst, line["max_abs_err"])
+        line["plan"] = dataclasses.asdict(k8_plan(
+            kind, n, h, w, cin, cout, k, stride, pad))
+        line["plan_int8_x"] = dataclasses.asdict(k8_plan(
+            kind, n, h, w, cin, cout, k, stride, pad, torch.int8))
+        line["route"] = line["plan"]["route"]
+        ok = (line["bit_equal_f32"] and line["bit_equal_bf16"]
+              and all(quant.values()))
+        del x, xq
         if timed:
-            fn = _k8_call(kind, stride, pad, torch.bfloat16)
-            sets = copies(lambda: _k8_args(gen, kind, n, h, w, cin, cout, k),
-                          x.numel() + wq.numel())
-            line["ms"] = device_ms(fn, sets)
+            def make():
+                xf, xq_, wq_, ws_, xs_, b_ = _k8_args(
+                    gen, kind, n, h, w, cin, cout, k)
+                # a calibrated scale: max|x| / 127 of the input itself (the
+                # power-of-two scale of the checks puts a bf16 x on the
+                # rounding midpoints, the quantizer's exact path)
+                cal = xf.abs().amax() / torch.tensor(127.0, device=DEV)
+                return xf.to(torch.bfloat16), xq_, wq_, ws_, xs_, b_, cal
+
+            sets = copies(make, 3 * n * h * w * cin + wq.numel())
+            main = _k8_call(kind, stride, pad, torch.bfloat16, quant=True)
+            int8_in = _k8_call(kind, stride, pad, torch.bfloat16)
+            quant_sets = [(s[0], s[2], s[3], s[6], s[5]) for s in sets]
+            line["ms"] = device_ms(main, quant_sets)
+            line["ms_dynamic"] = device_ms(
+                main, [(s[0], s[2], s[3], None, s[5]) for s in sets])
+            line["ms_int8_input"] = device_ms(
+                int8_in, [(s[1], s[2], s[3], s[4], s[5]) for s in sets])
             with conv_int8.plain_reference():
-                line["plain_ms"] = device_ms(fn, sets[:2], n=3)
+                line["plain_ms"] = device_ms(main, quant_sets[:2], n=3)
             lib = _k8_library(kind, stride, pad)
-            lib_sets = [(a[0].permute(0, 3, 1, 2).to(torch.bfloat16),
-                         a[1].to(torch.bfloat16), a[4].to(torch.bfloat16))
-                        for a in sets]
+            lib_sets = [(a[0].permute(0, 3, 1, 2), a[2].to(torch.bfloat16),
+                         a[5].to(torch.bfloat16)) for a in sets]
             line["library_ms"] = None     # no PyTorch int8 conv
             line["cudnn_bf16_ms"] = device_ms(lib, lib_sets)
             line["cudnn_bf16"] = ("cuDNN's bf16 conv at this shape: a "
                                   "reference point (the float conv int8 "
                                   "replaces), not the same function")
-            m_, n_, k_ = _k8_gemm(kind, x.shape, cout, k, stride, pad)
+            del sets, lib_sets, quant_sets
+            m_, n_, k_ = _k8_gemm(kind, (n, h, w, cin), cout, k, stride,
+                                  pad)
+            line["int_mm_ms"], why = _int_mm_ms(gen, m_, n_, k_)
+            line["int_mm"] = ("torch._int_mm at the GEMM's (M, N, K) on an "
+                              "A already im2col'd: the GEMM alone, not the "
+                              "same function") if why is None else why
             out_elems = m_ * n_
-            nbytes = x.numel() + wq.numel() + 2 * out_elems + 8 * cout
+            wbytes = wq.numel() + 8 * cout
             ops_ms = 2 * m_ * n_ * k_ / INT8_OPS_PER_S * 1e3
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            bytes_ms = (2 * n * h * w * cin + wbytes + 2 * out_elems) \
+                / HBM_BYTES_PER_S * 1e3
+            bytes8_ms = (n * h * w * cin + wbytes + 2 * out_elems) \
+                / HBM_BYTES_PER_S * 1e3
             line.update(bound_ms=max(ops_ms, bytes_ms),
                         bound_by="operations" if ops_ms >= bytes_ms
                         else "bytes",
+                        bound_ms_int8_input=max(ops_ms, bytes8_ms),
                         pct_of_bound=100 * max(ops_ms, bytes_ms)
                         / line["ms"],
+                        pct_of_bound_int8_input=100 * max(ops_ms, bytes8_ms)
+                        / line["ms_int8_input"],
                         tops=2 * m_ * n_ * k_ / line["ms"] / 1e9)
-            for key in ("ms", "plain_ms", "cudnn_bf16_ms", "bound_ms"):
+            for key in ("ms", "ms_dynamic", "ms_int8_input", "plain_ms",
+                        "cudnn_bf16_ms", "bound_ms", "bound_ms_int8_input"):
                 tot[key] += line[key] * per
+            if line["int_mm_ms"] is None:
+                int_mm_null += per
+            else:
+                tot["int_mm_ms"] += line["int_mm_ms"] * per
             tot["ops_ms"] += ops_ms * per
             tot["bytes_ms"] += bytes_ms * per
-            del sets, lib_sets
         emit(line)
         if not ok:
             raise AssertionError(f"conv_int8 differs from its plain version: "
                                  f"{line}")
     torch.cuda.empty_cache()
     return dict(tot, max_abs_err=worst, shapes=len(convs),
-                launches_per_pass=sum(c[-1] for c in convs))
+                launches_per_pass=sum(c[-1] for c in convs),
+                int_mm_null_launches=int_mm_null,
+                routes=k8_route_counts(convs))
+
+
+def check_k8_offset(gen):
+    """Both entries on an x whose base lies off a 16-byte boundary (a
+    contiguous view one element into its storage): the byte gather, bit-
+    equal to the plain version, in f32 and bf16."""
+    shape = (2, 9, 7, 32)
+    wq = torch.randint(-127, 128, (24, 32, 3, 3), generator=gen, device=DEV,
+                       dtype=torch.int8).contiguous(
+        memory_format=torch.channels_last)
+    ws = torch.rand(24, generator=gen, device=DEV) * 1e-3 + 1e-5
+    xs = torch.rand((), generator=gen, device=DEV) * 0.05 + 1e-3
+    b = torch.randn(24, generator=gen, device=DEV)
+    numel = math.prod(shape)
+    out = {}
+    for xdt, quant in ((torch.int8, False), (torch.bfloat16, True),
+                       (torch.float32, True)):
+        if quant:
+            base = torch.randn(numel + 1, generator=gen, device=DEV).to(xdt)
+        else:
+            base = torch.randint(-127, 128, (numel + 1,), generator=gen,
+                                 device=DEV, dtype=xdt)
+        x = base[1:].view(shape)
+        before = dict(conv_int8.launches_by_route)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            for scale, stag in (((xs, "x_s"),) if not quant
+                                else ((xs, "static"), (None, "dynamic"))):
+                eq, _ = _k8_equal(_k8_call("conv", 1, 1, dtype, quant),
+                                  (x, wq, ws, scale, b))
+                out[f"x_{str(xdt)[6:]}_{stag}_y_{tag}"] = eq
+        out[f"gather_launches_x_{str(xdt)[6:]}"] = (
+            conv_int8.launches_by_route["gather"] - before["gather"])
+    emit({"phase": "kernel", "kernel": "conv_int8", "case": "offset_view",
+          "shape": list(shape), "bit_equal": out})
+    calls = {"int8": 2, "bfloat16": 4, "float32": 4}
+    if not all(v is True for k, v in out.items() if not k.startswith(
+            "gather_")) or any(out[f"gather_launches_x_{t}"] != n
+                               for t, n in calls.items()):
+        raise AssertionError(f"conv_int8 on an offset view: {out}")
 
 
 def k8_counts():
-    """``launch_counts()`` with K8's launches by loader route."""
+    """``launch_counts()`` with K8's launches by route and by entry."""
     return dict(path_counts(), **{
         f"conv_int8_{route}": k
-        for route, k in conv_int8.launches_by_route.items()})
+        for route, k in conv_int8.launches_by_route.items()}, **{
+        f"conv_int8_{entry}_entry": k
+        for entry, k in conv_int8.launches_by_entry.items()})
+
+
+def k8_expect(convs):
+    """The K8 part of a ``k8_counts()`` expectation for one pass of
+    ``convs`` on the main path: every call on the quantizing entry, by the
+    planner's routes."""
+    n = sum(c[-1] for c in convs)
+    return dict(conv_int8=n, conv_int8_quant_entry=n,
+                conv_int8_int8_entry=0,
+                **{f"conv_int8_{r}": k
+                   for r, k in k8_route_counts(convs).items()})
 
 
 # ---------------------------------------------------------------------------
@@ -1565,9 +1752,15 @@ def device_breakdown(prof, wall_ms):
     groups = collections.Counter()
     for e in rows:
         groups[kernel_group(e.key)] += dev_us(e) / 1e3
+    # kernels of an activation quantizer in torch ops: round and the
+    # two-sided clamp (relu's clamp_min is not one)
+    quant = [e for e in rows if re.search(
+        r"round|clamp_scalar_kernel|clamp_kernel", e.key)]
     return {"wall_ms": wall_ms, "device_ms": total_us / 1e3,
             "device_busy_share": total_us / 1e3 / wall_ms,
             "by_group_ms": dict(groups.most_common()),
+            "quantizer_like_calls": sum(e.count for e in quant),
+            "quantizer_like": [e.key[:90] for e in quant],
             "top": [{"name": e.key[:90], "calls": e.count,
                      "device_ms": dev_us(e) / 1e3} for e in rows[:16]]}
 
@@ -2965,8 +3158,7 @@ def phase_int8(workdir: str, npz: str, bf16_mae: float, resnet_ckpt: str,
         expect = dict(on_main_routes(dict(NO_LAUNCHES, gate_update=per_k1,
                                           gate_update_bwd=0,
                                           conv3x3_fused=0)),
-                      conv_int8=K8_PER_FORWARD,
-                      conv_int8_vec=K8_PER_FORWARD - 1, conv_int8_gather=1)
+                      **k8_expect(K8_CUSTOM))
         out["main_path"] = {"launches": counts, "expected": expect}
         # K8 against its plain version through the whole forward (f32)
         y32 = kern(qmodel, xn, policy=FP32_POLICY)[0]
@@ -3027,8 +3219,7 @@ def phase_int8(workdir: str, npz: str, bf16_mae: float, resnet_ckpt: str,
                        "http_rel_err": rel_err(torch.from_numpy(
                            _http_round_trip(p, frames).copy()),
                            torch.from_numpy(y))}
-    per_request = K8_PER_FORWARD - 3 * IT + 3 * T
-    serve["expected_conv_int8"] = per_request
+    serve["expected"] = k8_expect(k8_custom_convs(BASE, HW, B, T))
     serve["calib_blocks"] = pred8c.int8_calib_blocks
     out["serve"] = serve
     out["latency"] = {name: [_request_latency(p, b, t, rng)
@@ -3043,6 +3234,11 @@ def phase_int8(workdir: str, npz: str, bf16_mae: float, resnet_ckpt: str,
         out["profile_one_request"][name] = _profiled(
             lambda p=p, sid=sid: p.predict(sid, frames))
         p.close_session(sid)
+    # the quantizer runs inside K8: a calibrated request launches no round
+    # or two-sided clamp kernel beyond the bf16 request's
+    quantizer = {name: prof["quantizer_like_calls"]
+                 for name, prof in out["profile_one_request"].items()}
+    out["quantizer_like_calls"] = quantizer
     del pred8, pred8c, pred_f
     torch.cuda.empty_cache()
 
@@ -3094,7 +3290,7 @@ def phase_int8(workdir: str, npz: str, bf16_mae: float, resnet_ckpt: str,
     out["resnet"] = {
         "launches": rcounts,
         "expected": dict(gate_update=r_k1, conv3x3_fused=0,
-                         conv_int8=K8_RESNET_PER_REQUEST),
+                         **k8_expect(K8_RESNET)),
         "finite": bool(np.isfinite(y).all()),
         "int8_vs_bf16_rel_l2": float(np.linalg.norm(y - yf)
                                      / np.linalg.norm(yf))}
@@ -3108,14 +3304,17 @@ def phase_int8(workdir: str, npz: str, bf16_mae: float, resnet_ckpt: str,
           and out["calibrated"]["sites_with_scale"]
           == out["calibrated"]["sites"] == out["sites"]
           and out["calibrated"]["finite"]
-          and out["calibrated"]["launches"]["conv_int8"] == K8_PER_FORWARD
+          and all(out["calibrated"]["launches"][k] == v
+                  for k, v in k8_expect(K8_CUSTOM).items())
           and out["calibrated"]["launches"]["conv3x3_fused"] == 0
-          and all(serve[n]["launches"]["conv_int8"] == per_request
+          and all(all(serve[n]["launches"][k] == v
+                      for k, v in serve["expected"].items())
                   and serve[n]["launches"]["gate_update"] == 3 * T
                   and serve[n]["launches"]["conv3x3_fused"] == 0
                   and serve[n]["finite"] and serve[n]["http_rel_err"] <= 1e-6
                   for n in ("int8_dynamic", "int8_calibrated"))
           and serve["calib_blocks"] == 4
+          and quantizer["int8_calibrated"] <= quantizer["bf16"]
           and math.isfinite(out["evaluate_int8"]["mae_calibrated_cli"])
           and out["evaluate_int8"]["calibrated_ratio"] <= INT8_EVAL_SANITY
           and out["evaluate_int8"]["dynamic_kernel_vs_plain"] <= 1e-6
@@ -3189,6 +3388,7 @@ def main() -> int:
     k8 = check_k8(gen, K8_CUSTOM, "int8_forward")
     k8_resnet = check_k8(gen, K8_RESNET, "resnet_int8_request")
     k8_ragged = check_k8(gen, K8_RAGGED, "ragged", timed=False)
+    check_k8_offset(gen)
     with tempfile.TemporaryDirectory() as workdir:
         pred, counts = phase_serve(workdir)
     phase_latency(pred)
@@ -3332,6 +3532,9 @@ def main() -> int:
         "launches_per_forward": K8_PER_FORWARD,
         "launches_by_route": {r: int8_counts[f"conv_int8_{r}"]
                               for r in conv_int8.ROUTES},
+        "launches_by_entry": {e: int8_counts[f"conv_int8_{e}_entry"]
+                              for e in conv_int8.ENTRIES},
+        "redesigned": 9,
         "max_abs_err": max(k8["max_abs_err"], k8_resnet["max_abs_err"],
                            k8_ragged["max_abs_err"]),
         "ms": k8["ms"], "plain_ms": k8["plain_ms"],
@@ -3340,17 +3543,27 @@ def main() -> int:
         else "bytes",
         "library_ms": None,
         "library": "none: PyTorch has no int8 convolution on CUDA",
+        "ms_dynamic": k8["ms_dynamic"], "ms_int8_input": k8["ms_int8_input"],
+        "bound_ms_int8_input": k8["bound_ms_int8_input"],
         "cudnn_bf16_ms": k8["cudnn_bf16_ms"],
         "cudnn_bf16": ("cuDNN's bf16 convs at the same shapes: a reference "
                        "point (the float path int8 replaces), not the same "
                        "function"),
+        "int_mm_ms": k8["int_mm_ms"],
+        "int_mm": ("torch._int_mm at each GEMM's (M, N, K) on an A already "
+                   "im2col'd: the GEMM alone, not the same function; "
+                   f"{k8['int_mm_null_launches']} launches refused by its "
+                   "shape rules are not in the sum"),
         "per": (f"one int8 forward: B={IB}, T={IT}, {HW}x{HW}, base_ch "
-                f"{BASE}, bf16 out ({k8['shapes']} shapes, "
-                f"{k8['launches_per_pass']} launches)"),
+                f"{BASE}, the quantizing entry on a bf16 x with static "
+                f"scales, bf16 out ({k8['shapes']} shapes, "
+                f"{k8['launches_per_pass']} launches; ms_dynamic with "
+                "dynamic scales, ms_int8_input on an int8 x)"),
         "resnet": {"per": f"one int8 request: B={B}, T={T}, {HW}x{HW}",
-                   **{k: k8_resnet[k] for k in ("ms", "plain_ms",
-                                                "cudnn_bf16_ms", "bound_ms",
-                                                "launches_per_pass")}}})
+                   **{k: k8_resnet[k] for k in (
+                       "ms", "ms_dynamic", "ms_int8_input", "plain_ms",
+                       "cudnn_bf16_ms", "int_mm_ms", "int_mm_null_launches",
+                       "bound_ms", "launches_per_pass", "routes")}}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -225,7 +225,9 @@ def test_kernel_ab_times_k1_at_the_paths_levels():
 
 @pytest.mark.parametrize("name,edits", [
     ("gate_update", kernel_ab.K1_PRECISE),
-    ("chained_gather", kernel_ab.K7_NO_UNROLL)])
+    ("chained_gather", kernel_ab.K7_NO_UNROLL),
+    ("conv_int8", [(kernel_ab.K8_ANCHOR,
+                    kernel_ab.K8_QUANTIZE_PASS + kernel_ab.K8_ANCHOR)])])
 def test_design_variants_edit_the_shipped_source_once(name, edits):
     text = build.sources()[name].read_text()
     for old, new in edits:

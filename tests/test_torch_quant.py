@@ -356,3 +356,117 @@ def test_ptq_noise_with_calibrated_batchnorm_matches_jax():
     noise_t = np.linalg.norm(t_q - t_f) / np.linalg.norm(t_f)
     assert noise_j > 0 and abs(noise_t - noise_j) <= 0.1 * noise_j, (
         noise_t, noise_j)
+
+
+# ---------------------------------------------------------------------------
+# K8's quantizing entry (the quantizer in the kernel's prologue): its plain
+# version, the CPU path, against the JAX int8 convs, bit for bit
+# ---------------------------------------------------------------------------
+
+XS = 2.0 ** -7   # a power of two: x / x_s is exact, so (k + 1/2) * x_s is
+#                  a rounding midpoint, which rounds half to even
+
+
+def _quant_x(rng, shape, static: bool, bf16: bool) -> np.ndarray:
+    """x on the quantizer's edges: midpoints (k + 1/2) * XS, exact steps,
+    values in between, and, with a static scale, beyond +-127 * XS (those
+    clamp); with a dynamic scale one entry is max|x| = 127 * XS, which
+    makes the dynamic scale XS too. In bf16 only values bf16 holds."""
+    k = rng.integers(-150 if static else -127, 151 if static else 127, shape)
+    frac = rng.choice([0.5, -0.5, 0.0, 0.25, 0.375], shape)
+    x = np.clip((k + frac), -200, 200 if static else 126.5) * XS
+    x = x.astype(np.float32)
+    if not static:
+        x.flat[0] = 127 * XS
+    if bf16:
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    return x
+
+
+def _port_x(x: np.ndarray, bf16: bool) -> torch.Tensor:
+    t = torch.from_numpy(x)
+    return t.to(torch.bfloat16) if bf16 else t
+
+
+QUANT_CASES = [(name, static, bf16, out)
+               for name in ("3x3_cin2", "3x3_cin48", "1x1_s2", "7x7_s2")
+               for static in (True, False) for bf16 in (False, True)
+               for out in ("f32", "bf16")]
+
+
+@pytest.mark.parametrize("name,static,bf16,out", QUANT_CASES)
+def test_quantizing_entry_plain_is_jax_conv2d_int8_bit_for_bit(
+        name, static, bf16, out):
+    N, H, W, I, O, k, s, jpad, pads = CONVS[name]
+    rng = np.random.default_rng(11)
+    x = _quant_x(rng, (N, H, W, I), static, bf16)
+    w = rng.standard_normal((k, k, I, O)).astype(np.float32)
+    b = rng.standard_normal(O).astype(np.float32)
+    jp = jq.quantize_conv_params({"w": jnp.asarray(w), "b": jnp.asarray(b)})
+    if static:
+        jp["x_s"] = jnp.float32(XS)
+    jdt, tdt = ((jnp.float32, torch.float32) if out == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    y_j = np.asarray(jq.conv2d_int8(jp, jnp.asarray(x), s, jpad,
+                                    out_dtype=jdt).astype(jnp.float32))
+    launches = launch_counts()["conv_int8"]
+    y_t = k8.conv_int8_quant(
+        _port_x(x, bf16),
+        torch.from_numpy(np.transpose(np.asarray(jp["w_q"]),
+                                      (3, 2, 0, 1)).copy()),
+        torch.from_numpy(np.array(jp["w_s"])),
+        torch.tensor(np.float32(XS)) if static else None,
+        torch.from_numpy(b), s, pads, tdt)
+    assert y_t.dtype == tdt and y_t.shape == y_j.shape
+    np.testing.assert_array_equal(y_t.float().numpy().view(np.int32),
+                                  y_j.view(np.int32))
+    assert launch_counts()["conv_int8"] == launches     # the CPU: plain
+
+
+@pytest.mark.parametrize("static,bf16", [(True, False), (False, False),
+                                         (True, True), (False, True)])
+def test_quantizing_entry_plain_is_jax_conv_transpose2d_int8_bit_for_bit(
+        static, bf16):
+    rng = np.random.default_rng(12)
+    x = _quant_x(rng, (2, 5, 7, 16), static, bf16)
+    wt = rng.standard_normal((2, 2, 8, 16)).astype(np.float32)   # HWOI
+    b = rng.standard_normal(8).astype(np.float32)
+    jp = jq.quantize_conv_params({"wt": jnp.asarray(wt),
+                                  "b": jnp.asarray(b)})
+    if static:
+        jp["x_s"] = jnp.float32(XS)
+    y_j = np.asarray(jq.conv_transpose2d_int8(jp, jnp.asarray(x), 2))
+    y_t = k8.conv_transpose_int8_quant(
+        _port_x(x, bf16),
+        torch.from_numpy(np.transpose(np.asarray(jp["wt_q"]),
+                                      (3, 2, 0, 1)).copy()),
+        torch.from_numpy(np.asarray(jp["wt_s"])),
+        torch.tensor(np.float32(XS)) if static else None,
+        torch.from_numpy(b), 2, torch.float32)
+    assert y_t.shape == y_j.shape == (2, 10, 14, 8)
+    np.testing.assert_array_equal(y_t.numpy().view(np.int32),
+                                  y_j.view(np.int32))
+
+
+@pytest.mark.parametrize("static", [True, False])
+def test_quantizer_rounds_midpoints_half_to_even_and_clamps(static):
+    """The quantizer the kernel's prologue repeats, against JAX's: at
+    midpoints, exact steps and beyond +-127 * x_s the int8 values are
+    equal, and they are what round-half-to-even and the clamp give."""
+    x = _quant_x(np.random.default_rng(13), (4, 6, 6, 16), static, False)
+    if static:
+        j_q = np.asarray(jnp.clip(jnp.round(jnp.asarray(x) / XS), -127,
+                                  127).astype(jnp.int8))
+        t_q, t_s = k8.quantize_with(torch.from_numpy(x),
+                                    torch.tensor(np.float32(XS))), XS
+    else:
+        j_q, j_s = jq._quantize_act(jnp.asarray(x))
+        j_q = np.asarray(j_q)
+        t_q, t_s = k8.quantize_act(torch.from_numpy(x))
+        assert float(j_s) == t_s.item() == XS
+    np.testing.assert_array_equal(t_q.numpy(), j_q)
+    r = x.astype(np.float64) / XS
+    np.testing.assert_array_equal(t_q.numpy(),
+                                  np.clip(np.rint(r), -127, 127))  # rint: even
+    mid = np.abs(r - np.floor(r) - 0.5) == 0
+    assert mid.sum() > 100 and (np.abs(r) > 127).any() == static

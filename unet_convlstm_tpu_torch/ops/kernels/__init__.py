@@ -5,7 +5,8 @@ Each wrapper counts its kernel launches in a plain integer on its module;
 ``launch_counts`` reads them and ``reset_launches`` sets them to 0, with
 the gate update forward's, the fused conv's and the int8 conv's counts by
 route (``convlstm_fused.launches_by_route``,
-``doubleconv_fused.launches_by_route``, ``conv_int8.launches_by_route``).
+``doubleconv_fused.launches_by_route``, ``conv_int8.launches_by_route``)
+and the int8 conv's by entry (``conv_int8.launches_by_entry``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ def reset_launches() -> None:
         setattr(m, attr, 0)
     for by_route in (convlstm_fused.launches_by_route,
                      doubleconv_fused.launches_by_route,
-                     conv_int8.launches_by_route):
+                     conv_int8.launches_by_route,
+                     conv_int8.launches_by_entry):
         for route in by_route:
             by_route[route] = 0

@@ -11,7 +11,11 @@ Scheme (symmetric PTQ, as the JAX package):
   127`` computed on the card at each conv; or *calibrated static*
   (:func:`calibrate_tree`) — a per-site scale ``x_s`` measured once over
   calibration batches. Both quantize as ``clip(round(x / scale), ±127)``
-  in f32, in that order. These stay plain torch ops.
+  in f32, in that order. On the card the int8 kernel (K8's quantizing
+  entry, ``ops/kernels/conv_int8.conv_int8_quant``) does it in its
+  prologue, from the float activation and the scale on the card (for the
+  dynamic scale after one max|x| reduction), so no int8 activation reaches
+  device memory; on the CPU it stays plain torch ops.
 * **Accumulation**: int32 in the hand-written kernel
   (``ops/kernels/conv_int8.py``, K8), then ``float(acc) * (x_s * w_s) +
   b`` in f32 and the policy's compute dtype.
@@ -50,21 +54,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.dtypes import full_fp32
-from .kernels.conv_int8 import conv_int8, conv_transpose_int8
-
-INT8_MAX = 127.0
+from .kernels.conv_int8 import (INT8_MAX, _const, conv_int8_quant,
+                                conv_transpose_int8_quant,
+                                quantize_act)  # noqa: F401 (re-exported)
 
 # site id -> running max |x| (an f32 tensor on the activation's device),
 # set only inside act_calibration(); read and written under _CALIB_LOCK
 _CALIB: Optional[Dict[int, torch.Tensor]] = None
 _CALIB_LOCK = threading.Lock()
-
-
-def _const(v: float, like: torch.Tensor) -> torch.Tensor:
-    """An f32 constant on ``like``'s device: a division by a tensor rounds
-    once on every device (torch divides by a Python number as a product
-    with its reciprocal on the card)."""
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
 
 
 class QuantConv2d(nn.Module):
@@ -137,7 +134,9 @@ def _record_amax(site: int, x: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Weights and activations
+# Weights (the activation quantizer, ``quantize_act`` and the static
+# ``quantize_with``, is the plain version of K8's prologue and lives beside
+# the kernel, in ops/kernels/conv_int8.py)
 # ---------------------------------------------------------------------------
 
 def quantize_weight(w: torch.Tensor, out_axis: int
@@ -155,28 +154,6 @@ def quantize_weight(w: torch.Tensor, out_axis: int
     return w_q, scale
 
 
-def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dynamic per-tensor symmetric int8: (x_q int8, scale f32 [])."""
-    x = x.float()
-    amax = x.abs().amax()
-    scale = torch.where(amax > 0, amax / _const(INT8_MAX, x),
-                        _const(1.0, x))
-    return _quantize_with(x, scale), scale
-
-
-def _quantize_with(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(torch.round(x.float() / scale), -INT8_MAX,
-                       INT8_MAX).to(torch.int8).contiguous()
-
-
-def _act(m, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(x_q, x_s): the calibrated static scale where the site has one,
-    else the dynamic one."""
-    if m.x_s is not None:
-        return _quantize_with(x, m.x_s), m.x_s
-    return quantize_act(x)
-
-
 # ---------------------------------------------------------------------------
 # The int8 convolutions
 # ---------------------------------------------------------------------------
@@ -185,8 +162,10 @@ def conv2d_int8(m: QuantConv2d, x: torch.Tensor, stride: int = 1,
                 pads=((0, 0), (0, 0)),
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """int8 NHWC conv of a :class:`QuantConv2d` with explicit pads
-    ((top, bottom), (left, right)): dynamic or static activation scale,
-    int32 accumulation (K8 on the card), per-channel dequant, bias."""
+    ((top, bottom), (left, right)): the calibrated static activation scale
+    where the site has one, else the dynamic one; int32 accumulation (K8 on
+    the card, which quantizes x in its prologue), per-channel dequant,
+    bias."""
     if m.w_s.shape[0] != m.weight.shape[0]:
         raise ValueError(
             f"w_s has {m.w_s.shape[0]} scales but the kernel has "
@@ -206,9 +185,8 @@ def conv2d_int8(m: QuantConv2d, x: torch.Tensor, stride: int = 1,
         if m.bias is not None:
             y = y + m.bias
         return y.to(out_dtype)
-    x_q, x_s = _act(m, x)
-    return conv_int8(x_q, m.weight, m.w_s, x_s, m.bias, stride, pads,
-                     out_dtype)
+    return conv_int8_quant(x, m.weight, m.w_s, m.x_s, m.bias, stride, pads,
+                           out_dtype)
 
 
 def conv_transpose2d_int8(m: QuantConvTranspose2d, x: torch.Tensor,
@@ -231,9 +209,8 @@ def conv_transpose2d_int8(m: QuantConvTranspose2d, x: torch.Tensor,
         if m.bias is not None:
             y = y + m.bias
         return y.to(out_dtype)
-    x_q, x_s = _act(m, x)
-    return conv_transpose_int8(x_q, m.weight, m.w_s, x_s, m.bias, stride,
-                               out_dtype)
+    return conv_transpose_int8_quant(x, m.weight, m.w_s, m.x_s, m.bias,
+                                     stride, out_dtype)
 
 
 # ---------------------------------------------------------------------------
