@@ -94,6 +94,19 @@ non-zero:
               9's checkpoint (its MAE against the bf16 one; dynamic int8
               through evaluate_model with K8 equal to it with K8's plain
               version), and one int8 request of the ResNet18 family.
+14. datachain — the data chain: stage A's microphysics on the card against
+              float64 numpy at a BOMEX-like block; stage C (``gen-maps``) at
+              the production geometry (the gate's 128x128x32 patches at
+              20 m, 256x256, a 2-view overpass CSV, slice and first_hit):
+              serial and --batch 8 on the card, timed a patch, against the
+              same call on the CPU, with the fixed nadir camera and with the
+              CSV's own cameras; ``cloud-gate --production`` through the CLI
+              (the custom model at base_ch 64, 128x128, T=2, B=4, 10 epochs,
+              the deterministic stage-B renderer): PASSED and exit 0, each
+              stage's wall time, the first, best and final val MAE, the K1
+              and K2 launches of its training run exact; and the gate at
+              nz 8, nxy 16 with stage B on the Monte-Carlo path tracer
+              (spp 4, majorant cell 16), its renders reaching stage D.
 
 Phase 2 also holds the gate update forward (K1) where its vector route does
 not go (C = 12, a gates view 2 bytes off a 16-byte boundary), with f32
@@ -160,6 +173,7 @@ from unet_convlstm_tpu_torch.data.pipeline import (SequenceLoader,
 from unet_convlstm_tpu_torch.core.dtypes import (DEFAULT_POLICY, FP32_POLICY,
                                                  full_fp32)
 from unet_convlstm_tpu_torch.datagen import mc_reference
+from unet_convlstm_tpu_torch.datagen.microphysics import process_cloud_vars
 from unet_convlstm_tpu_torch.datagen.overpass import synthesize_overpass_csv
 from unet_convlstm_tpu_torch.datagen.renderer import (VolumeScene,
                                                       sun_transmittance)
@@ -182,6 +196,7 @@ from unet_convlstm_tpu_torch.ops.quant import (calibrate_tree,
                                                quant_sites, quantize_model)
 from unet_convlstm_tpu_torch.probes import bn_kernel_proto, probe_gather
 from unet_convlstm_tpu_torch.serve import StreamingPredictor, serve_http
+from unet_convlstm_tpu_torch.train import cloud_gate
 from unet_convlstm_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                       save_checkpoint)
 from unet_convlstm_tpu_torch.train.config import TrainConfig
@@ -3327,6 +3342,296 @@ def phase_int8(workdir: str, npz: str, bf16_mae: float, resnet_ckpt: str,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 14. the data chain
+# ---------------------------------------------------------------------------
+
+MICRO_SHAPE = (64, 128, 128)     # a BOMEX-like block [Z, Y, X] at 20 m
+MICRO_TOL = 1e-5
+MICRO_TOL_WHY = ("f32 on the card against float64 numpy, elementwise "
+                 "relative: the inputs' f32 rounding and ~12 f32 ops, powf "
+                 "and the f32 exponent 1/3 move each output by a few 1e-7")
+GATE = cloud_gate.PRODUCTION
+# stage C at the production geometry: the gate's patches (128x128x32 at
+# 20 m), 256x256, the slice mid-cloud at the gate's height
+C_SLICE_M = int(GATE.nz * GATE.voxel_size * 0.5)
+C_BATCH = 8
+C_TOL = 1e-3
+C_TOL_WHY = ("share of pixels whose NaN-ness or value differs between the "
+             "card and the CPU: a value is a voxel's, so the maps agree "
+             "exactly where both pick the same voxel; at 600 km an ulp of a "
+             "ray direction (rounded otherwise by the card's kernels) moves "
+             "an off-nadir ray's sample by ~0.02 m, which may cross a voxel "
+             "face or a cloud edge")
+MC_CHAIN = dataclasses.replace(
+    cloud_gate.CloudGateConfig(), nz=8, nxy=16, n_folders=2, n_samples=4,
+    render_res=16, out_size=16, base_ch=4, epochs=1, batch_size=2,
+    mc_spp=4, mc_majorant_cell=16, mae_threshold=float("inf"))
+
+
+def check_microphysics():
+    """``process_cloud_vars`` on f32 tensors on the card against float64
+    numpy at a BOMEX-like block (p in mb, T 290-300 K, QN up to 1 g/kg)."""
+    rng = np.random.default_rng(SEED)
+    nz, ny, nx = MICRO_SHAPE
+    z_m = np.arange(nz) * 20.0
+    p = 1015.0 * np.exp(-z_m / 8500.0)
+    t = (299.0 - 6.5e-3 * z_m[:, None, None]
+         + rng.uniform(-1.0, 1.0, MICRO_SHAPE))
+    qn = np.minimum(rng.gamma(0.5, 0.3, MICRO_SHAPE), 1.0) * (
+        rng.random(MICRO_SHAPE) < 0.3)
+    nc = rng.uniform(40.0, 80.0, MICRO_SHAPE)
+    want = process_cloud_vars(qn, nc, t, p)
+    got = process_cloud_vars(*(torch.tensor(a, dtype=torch.float32,
+                                            device=DEV)
+                               for a in (qn, nc, t)), p)
+    errs = {}
+    for name, g, w in zip(("lwc", "reff_um", "beta_ext"), got, want):
+        g = g.double().cpu().numpy()
+        errs[name] = float(np.max(np.abs(g - w) / np.maximum(np.abs(w),
+                                                             1e-30)))
+    ok = (all(e <= MICRO_TOL for e in errs.values())
+          and all(g.dtype == torch.float32 and g.device.type == "cuda"
+                  for g in got))
+    emit({"phase": "microphysics", "shape": list(MICRO_SHAPE),
+          "t_range_k": [float(t.min()), float(t.max())],
+          "qn_max_g_kg": float(qn.max()), "cloudy_share":
+          float((qn > 0).mean()), "max_rel_err": errs, "tol": MICRO_TOL,
+          "tol_why": MICRO_TOL_WHY, "ok": ok})
+    if not ok:
+        raise AssertionError("microphysics on the card disagrees")
+
+
+def _maps(root):
+    """{relative path: {'u_map', 'v_map', 'w_map'}} of a gen-maps tree."""
+    return {k: d for k, (_, d) in _pkls(root).items()}
+
+
+def _maps_diff(a, b):
+    """Pixels of two map trees whose NaN-ness or value differs."""
+    px = diff = 0
+    for key in a:
+        for m in ("u_map", "v_map", "w_map"):
+            x, y = a[key][m], b[key][m]
+            same = (np.isnan(x) & np.isnan(y)) | (x == y)
+            px += x.size
+            diff += int((~same).sum())
+    return diff, px
+
+
+def _gen_maps(args, dst, device=None):
+    """``gen-maps`` through the CLI: wall seconds, launch counts."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        cli_main(["gen-maps", *args, "--output", dst]
+                 + (["--device", device] if device else []))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, launch_counts()
+
+
+def check_stage_c(workdir: str):
+    """gen-maps on the gate's production patches (one time folder of 8)
+    and a 2-view overpass CSV, each mode: serial and --batch 8 on the card
+    (each twice; the faster run timed), the same call on the CPU; then the
+    CSV's own (off-nadir) cameras on the card and the CPU."""
+    root = os.path.join(workdir, "c_patches")
+    cloud_gate.synthesize_cloud_patches(
+        root, dataclasses.replace(GATE, n_folders=1))
+    csv_path = synthesize_overpass_csv(
+        os.path.join(workdir, "c_overpass.csv"), n_times=1, n_satellites=2)
+    base = ["--input", root, "--csv", csv_path, "--res", "256",
+            "--slice-height", str(C_SLICE_M)]
+    ok = True
+    for mode in ("slice", "first_hit"):
+        runs, walls, counts = {}, {}, {}
+        for tag, extra, dev in (
+                ("card", [], None), ("card_batch", ["--batch", str(C_BATCH)],
+                                     None),
+                ("cpu", [], "cpu"), ("card_csv", ["--csv-cameras"], None),
+                ("cpu_csv", ["--csv-cameras"], "cpu")):
+            reps = 2 if dev is None and tag in ("card", "card_batch") else 1
+            for r in range(reps):
+                dst = os.path.join(workdir, f"c_{mode}_{tag}_{r}")
+                wall, counts[tag] = _gen_maps(base + ["--mode", mode] + extra,
+                                              dst, dev)
+                walls.setdefault(tag, []).append(wall)
+            runs[tag] = _maps(dst)
+        n = len(runs["card"])
+        card_cpu = _maps_diff(runs["card"], runs["cpu"])
+        card_cpu_csv = _maps_diff(runs["card_csv"], runs["cpu_csv"])
+        batch_equal = _maps_diff(runs["card_batch"], runs["card"])[0] == 0
+        nan_share = float(np.mean([np.isnan(d["w_map"]).mean()
+                                   for d in runs["card"].values()]))
+        finite_somewhere = all(np.isfinite(d["w_map"]).any()
+                               for d in runs["card"].values())
+        line = {
+            "phase": "stage_c", "mode": mode, "patch": [GATE.nz, GATE.nxy,
+                                                        GATE.nxy],
+            "voxel_m": GATE.voxel_size, "res": 256, "pkls": n,
+            "views": 2, "slice_height_m": C_SLICE_M,
+            "ms_per_patch": {k: 1e3 * min(v) / (n // 2)
+                             for k, v in walls.items()},
+            "walls_s": walls, "launches": counts,
+            "batched_equal_serial": batch_equal,
+            "card_vs_cpu_pixels_differing": card_cpu[0],
+            "card_vs_cpu_csv_cameras_pixels_differing": card_cpu_csv[0],
+            "pixels": card_cpu[1], "nan_share": nan_share,
+            "tol": C_TOL, "tol_why": C_TOL_WHY}
+        line["ok"] = (n == 2 * GATE.n_samples and batch_equal
+                      and card_cpu[0] <= C_TOL * card_cpu[1]
+                      and card_cpu_csv[0] <= C_TOL * card_cpu_csv[1]
+                      and finite_somewhere
+                      and all(sum(c.values()) == 0 for c in counts.values()))
+        emit(line)
+        ok = ok and line["ok"]
+    if not ok:
+        raise AssertionError("stage C checks failed")
+
+
+def _gate_expect(npz: str, cfg, epochs: int):
+    """The gate's fit launches: per pass k1_levels and k2_convs of its
+    model at T = seq_len, over the train steps and eval batches of each
+    epoch that ran."""
+    ds = NPZSequenceDataset(npz)
+    tr, va = ds.train_val_split(0.8, 42)
+    steps = len(tr) // cfg.batch_size
+    evals = math.ceil(len(va) / cfg.batch_size)
+    k1 = sum(n for *_, n in k1_levels(cfg.base_ch, cfg.out_size,
+                                       cfg.seq_len))
+    k2 = sum(n for *_, n in k2_convs(cfg.base_ch, cfg.out_size))
+    return {"gate_update": (steps + evals) * k1 * epochs,
+            "gate_update_bwd": steps * k1 * epochs,
+            "conv3x3_fused": (steps + evals) * k2 * epochs}, steps, evals
+
+
+def gate_production(workdir: str):
+    """``cloud-gate --production`` through the CLI on the card; the gate
+    must print PASSED and exit 0, its fit's launches exact."""
+    work = os.path.join(workdir, "gate")
+    out_json = os.path.join(workdir, "gate.json")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli_main(["cloud-gate", "--work-dir", work, "--production",
+                      "--out", out_json])
+            code = None
+        except SystemExit as e:       # the gate's verdict, 0 or 1
+            code = e.code
+    wall = time.perf_counter() - t0
+    counts = path_counts()
+    sys.stderr.write(buf.getvalue())
+    with open(out_json) as f:
+        res = json.load(f)
+    with open(os.path.join(work, "gate_dataset.json")) as f:
+        npz = json.load(f)["npz"]
+    epochs = len(res["history"])
+    fit, steps, evals = _gate_expect(npz, GATE, epochs)
+    expect = on_main_routes(dict(NO_LAUNCHES, **fit))
+    verdict = [ln for ln in buf.getvalue().splitlines()
+               if ln.startswith("[cloud-gate] val MAE")]
+    line = {"phase": "cloud_gate", "config": "PRODUCTION",
+            "geometry": {"patch": [GATE.nz, GATE.nxy, GATE.nxy],
+                         "render": GATE.render_res, "out": GATE.out_size,
+                         "base_ch": GATE.base_ch, "T": GATE.seq_len,
+                         "B": GATE.batch_size, "epochs": GATE.epochs,
+                         "sequences": GATE.n_samples
+                         * (GATE.n_folders // GATE.seq_len)},
+            "exit_code": code, "verdict": verdict, "passed": res["passed"],
+            "best_val_mae": res["best_val_mae"],
+            "first_epoch_val_mae": res["first_epoch_val_mae"],
+            "final_val_mae": res["final_val_mae"],
+            "best_epoch": res["best_epoch"],
+            "mae_threshold": res["mae_threshold"],
+            "stage_s": res["stage_s"], "wall_s": wall,
+            "epochs_run": epochs, "train_steps_per_epoch": steps,
+            "eval_batches_per_epoch": evals, "launches": counts,
+            "expected": expect,
+            "from_nc": ("not run: --from-nc writes its .nc files with h5py "
+                        "and reads them with netCDF4 or h5py (importable "
+                        "here: h5py "
+                        f"{importlib.util.find_spec('h5py') is not None}, "
+                        "netCDF4 "
+                        f"{importlib.util.find_spec('netCDF4') is not None}"
+                        "); stage A is held against the JAX package on the "
+                        "CPU by tests/test_torch_datagen_stage_a.py and "
+                        "tests/test_torch_cloud_gate.py")}
+    line["ok"] = (code == 0 and res["passed"]
+                  and res["best_val_mae"] < GATE.mae_threshold
+                  and res["best_val_mae"] < res["first_epoch_val_mae"]
+                  and len(verdict) == 1 and verdict[0].endswith("PASSED")
+                  and counts == expect)
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError("the production cloud gate failed")
+    return counts
+
+
+def gate_mc_chain(workdir: str):
+    """The gate with stage B on the Monte-Carlo path tracer at a reduced
+    size: stages C and D must consume the MC renders. Its MAE is not
+    judged at this size."""
+    cfg = MC_CHAIN
+    work = os.path.join(workdir, "gate_mc")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        res = cloud_gate.run_cloud_gate(work, cfg, device=DEV)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    npz = np.load(os.path.join(work, "cloud_w.npz"))
+    folder = sorted(os.listdir(os.path.join(work, "renders")))[0]
+    renders = {}
+    for v in (0, 1):
+        with open(os.path.join(work, "renders", folder,
+                               f"sample_000_time_0_view_{v}.pkl"), "rb") as f:
+            renders[v] = pickle.load(f)["render"]
+    consumed = all(np.array_equal(npz["X"][0, 0, v], renders[v])
+                   for v in (0, 1))
+    fit, _, _ = _gate_expect(os.path.join(work, "cloud_w.npz"), cfg,
+                             len(res["history"]))
+    line = {"phase": "mc_chain", "mc_spp": cfg.mc_spp,
+            "mc_majorant_cell": cfg.mc_majorant_cell,
+            "geometry": [cfg.nz, cfg.nxy, cfg.nxy, cfg.n_folders,
+                         cfg.n_samples], "stage_s": res["stage_s"],
+            "wall_s": wall, "launches": counts,
+            "sequences": list(npz["X"].shape),
+            "renders_reach_the_npz": consumed,
+            "renders_finite_nonnegative": all(
+                np.isfinite(r).all() and (r >= 0).all()
+                for r in renders.values()),
+            "val_mae": [h["val_mae"] for h in res["history"]
+                        if "val_mae" in h],
+            "mc_sample_flights": ("0 by design: stage B's Monte-Carlo "
+                                  "route (render_dataset, as in the JAX "
+                                  "package) draws threefry uniforms and "
+                                  "has no fused-sampler option")}
+    line["ok"] = (consumed and line["renders_finite_nonnegative"]
+                  and counts["mc_sample_flights"] == 0
+                  and counts["gate_update"] == fit["gate_update"]
+                  and counts["gate_update_bwd"] == fit["gate_update_bwd"]
+                  and all(math.isfinite(m) for m in line["val_mae"]))
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError("the MC chain failed")
+
+
+def phase_datachain(workdir: str):
+    """Stage A's microphysics, stage C at production geometry, the
+    production gate, the reduced MC chain. Returns the gate's launch
+    counts."""
+    check_microphysics()
+    check_stage_c(workdir)
+    counts = gate_production(workdir)
+    gate_mc_chain(workdir)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3359,6 +3664,11 @@ def main() -> int:
                     "gradients as train_f32 and train_bf16; launch counts "
                     "exact; the frozen encoder bit-equal",
           "conv_int8": K8_TOL,
+          "microphysics": f"{MICRO_TOL} relative: {MICRO_TOL_WHY}",
+          "stage_c": (f"card against CPU: at most {C_TOL} of the pixels "
+                      f"differ ({C_TOL_WHY}); --batch 8 equal to serial"),
+          "cloud_gate": (f"PASSED: best val MAE < {GATE.mae_threshold} and "
+                         "below the first epoch's; launch counts exact"),
           "eval": ("evaluate's printed MAE equal to the best epoch's val MAE "
                    "to 4 decimals; launch counts exact; rollouts in f32: "
                    f"whole-sequence against streaming {SCAN_F32_TOL} RMS "
@@ -3412,6 +3722,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         int8_counts = phase_int8(workdir, npz, bf16_mae,
                                  os.path.join(workdir, "resnet18.pt"), smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        chain_counts = phase_datachain(workdir)
 
     per = f"one request: B={B}, T={T}, {HW}x{HW}, base_ch {BASE}, bf16"
     per_step = (f"one training step: B={TB}, T={TT}, {THW}x{THW}, base_ch "
@@ -3490,6 +3803,8 @@ def main() -> int:
                            "its uniforms in K4 and does not launch it")
     for k in kernels[:3]:
         k["fit_launches"] = fit_counts[k["name"]]
+        k["datachain_launches"] = chain_counts[k["name"]]
+    kernels[3]["datachain_launches"] = chain_counts["mc_sample_flights"]
     kernels[0]["resnet"] = resnet["gate_update"]
     kernels[2]["resnet"] = resnet["gate_update_bwd"]
     kernels.append({

@@ -59,7 +59,10 @@ COVERED = ("ops.kernels.convlstm_fused", "serve", "train.steps",
            "models.registry", "utils.torch_weights", "eval.metrics",
            "eval.rollout", "eval.image_metrics", "viz.geometry",
            "viz.figures", "viz.rollout_video", "ops.quant",
-           "ops.kernels.conv_int8")
+           "ops.kernels.conv_int8", "datagen.microphysics",
+           "datagen.vol_format", "datagen.lespatch", "ops.resize",
+           "datagen.raycast", "datagen.velocity_maps", "datagen.alignment",
+           "datagen.sequences", "train.cloud_gate")
 
 
 def test_every_module_imports_with_jax_blocked():

@@ -10,11 +10,13 @@ mirrors its layout so that each module has a counterpart of the same name:
                 normalization; ``ops.kernels`` holds the hand-written CUDA
                 kernels (sources in ``csrc/``) beside their plain versions.
 * ``models``  — TemporalUNetDualView, the sequence layout, the registry.
-* ``train``   — checkpoint I/O (the reference's torch ``.pt`` format).
+* ``train``   — the training step and run, checkpoint I/O (the
+                reference's torch ``.pt`` format) and the cloud gate.
 * ``utils``   — weights carried over from the JAX package's param trees.
 * ``serve``   — the streaming predictor and its HTTP front end.
-* ``datagen`` — stage B of the data chain: the deterministic renderer, the
-                Monte-Carlo path tracer and the ``gen-renders`` driver.
+* ``datagen`` — the data chain: stage A (LES patches), stage B (the
+                deterministic renderer and the Monte-Carlo path tracer),
+                stage C (velocity maps) and stage D (training sequences).
 
 It imports torch, never jax, and nothing of the JAX package. Entry points
 run on the card unless the caller passes ``device="cpu"``.

@@ -1,6 +1,7 @@
 """Command line (counterpart of unet_convlstm_tpu/cli.py; ``train``,
-``evaluate``, ``rollout``, ``overfit``, ``gen-mnist``, ``serve``, ``bench``
-and ``gen-renders`` so far).
+``evaluate``, ``rollout``, ``overfit``, ``gen-mnist``, ``serve``, ``bench``,
+the data chain's ``gen-patches``, ``gen-renders``, ``gen-maps`` and
+``gen-sequences``, and ``cloud-gate`` so far).
 
     python -m unet_convlstm_tpu_torch gen-mnist --out mm.npz --seq-len 10 \\
         --num-samples 2000 --xy
@@ -16,10 +17,17 @@ and ``gen-renders`` so far).
     python -m unet_convlstm_tpu_torch serve --checkpoint ckpts/custom_best.pt \\
         --port 8000 --warmup 1x64x64 [--int8 [--int8-calib-npz mm.npz]]
     python -m unet_convlstm_tpu_torch bench [--plain]
+    python -m unet_convlstm_tpu_torch gen-patches --input nc --output patches
     python -m unet_convlstm_tpu_torch gen-renders --input patches \\
         --output renders --csv overpass.csv [--mc-spp 16]
+    python -m unet_convlstm_tpu_torch gen-maps --input patches --output maps \\
+        --csv overpass.csv [--mode first_hit] [--batch 8]
+    python -m unet_convlstm_tpu_torch gen-sequences --images renders \\
+        --maps maps --out cloud.npz
+    python -m unet_convlstm_tpu_torch cloud-gate --work-dir gate --production
 
-Runs on the card unless ``--device cpu`` is given. ``evaluate`` draws its
+Runs on the card unless ``--device cpu`` is given (``gen-patches`` is host
+numpy and reads the .nc files with netCDF4 or h5py). ``evaluate`` draws its
 figures and ``rollout`` its video where matplotlib (and cv2) are installed;
 otherwise each says what it did not draw and writes everything else.
 """
@@ -300,6 +308,88 @@ def cmd_gen_renders(args) -> None:
     print(f"wrote {n} render pkls")
 
 
+def cmd_gen_patches(args) -> None:
+    """Stage A: LES netCDF → patch pkls (datagen/lespatch.py)."""
+    from .datagen.lespatch import process_all_nc_files
+
+    results = process_all_nc_files(args.input, args.output,
+                                   start_from=args.start, end_at=args.end)
+    total = sum(results.values())
+    print(f"{len(results)} files -> {total} patches")
+
+
+def cmd_gen_maps(args) -> None:
+    """Stage C: patches → velocity-map pkls (datagen/velocity_maps.py)."""
+    from .datagen.velocity_maps import MULTI_DEVICE, build_velocity_maps
+
+    if args.data_parallel:
+        raise NotImplementedError(f"gen-maps --data-parallel: {MULTI_DEVICE}")
+    n = build_velocity_maps(args.input, args.output, args.csv,
+                            mode=args.mode,
+                            resolution=(args.res, args.res),
+                            slice_height_m=args.slice_height,
+                            use_fixed_camera=not args.csv_cameras,
+                            start=args.start, end=args.end,
+                            batch_size=args.batch, device=args.device)
+    print(f"wrote {n} map pkls")
+
+
+def cmd_gen_sequences(args) -> None:
+    """Stage D: renders + maps → training npz (datagen/sequences.py)."""
+    from .datagen.sequences import build_trajectory_sequences
+
+    out = build_trajectory_sequences(
+        args.images, args.maps, args.out, seq_len=args.seq_len,
+        num_samples=args.num_samples, map_type=args.map_type,
+        map_suffix=args.map_suffix, device=args.device)
+    print(f"wrote {out}")
+
+
+def cmd_cloud_gate(args) -> None:
+    """Thresholded synthetic-cloud acceptance run over the data chain and
+    a training run (train/cloud_gate.py); exits 1 when the gate fails."""
+    import dataclasses
+
+    from .train.cloud_gate import (PRODUCTION, PRODUCTION_WVU,
+                                   CloudGateConfig, run_cloud_gate)
+
+    cfg = PRODUCTION if args.production else CloudGateConfig()
+    if args.wvu:
+        cfg = (PRODUCTION_WVU if args.production else
+               dataclasses.replace(cfg, map_type="wvu", use_mask=True))
+    if args.ms_orders != 1 or args.ms_calibrate_spp:
+        cfg = dataclasses.replace(cfg, ms_orders=args.ms_orders,
+                                  ms_calibrate_spp=args.ms_calibrate_spp)
+    if args.mc_spp:
+        cfg = dataclasses.replace(cfg, mc_spp=args.mc_spp,
+                                  mc_majorant_cell=args.mc_majorant_cell,
+                                  mc_spp_chunk=args.mc_spp_chunk)
+    if args.render_batch != 1:
+        cfg = dataclasses.replace(cfg, render_batch_size=args.render_batch)
+    if args.from_nc:
+        cfg = dataclasses.replace(cfg, from_nc=True)
+    if args.model_family != "custom":
+        cfg = dataclasses.replace(cfg, model_family=args.model_family)
+    # geometry overrides (reference temporal depth: seq_len=12 folders of
+    # 49 samples, build_sequences.py:15-16)
+    for knob in ("seq_len", "n_folders", "n_samples", "epochs",
+                 "batch_size", "seed"):
+        v = getattr(args, knob)
+        if v is not None:
+            cfg = dataclasses.replace(cfg, **{knob: v})
+    # pretrain→freeze transfer knobs (train/cloud_gate.py docstrings)
+    if args.checkpoint_dir:
+        cfg = dataclasses.replace(cfg, checkpoint_dir=args.checkpoint_dir)
+    if args.pretrained_path:
+        cfg = dataclasses.replace(cfg, pretrained_path=args.pretrained_path)
+    if args.freeze_encoder:
+        cfg = dataclasses.replace(cfg, freeze_encoder=True)
+    res = run_cloud_gate(args.work_dir, cfg, out_json=args.out,
+                         reuse_dataset=args.reuse_dataset,
+                         device=args.device)
+    raise SystemExit(0 if res["passed"] else 1)
+
+
 def _device_arg(p) -> None:
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' to run "
@@ -448,6 +538,117 @@ def build_parser() -> argparse.ArgumentParser:
                          "all spp in one dispatch)")
     _device_arg(gr)
     gr.set_defaults(fn=cmd_gen_renders)
+
+    gp = sub.add_parser("gen-patches", help="stage A: netCDF -> patches "
+                                            "(host numpy)")
+    gp.add_argument("--input", required=True)
+    gp.add_argument("--output", required=True)
+    gp.add_argument("--start", type=int, default=None)
+    gp.add_argument("--end", type=int, default=None)
+    gp.set_defaults(fn=cmd_gen_patches)
+
+    gm = sub.add_parser("gen-maps", help="stage C: patches -> velocity maps")
+    gm.add_argument("--input", required=True)
+    gm.add_argument("--output", required=True)
+    gm.add_argument("--csv", required=True)
+    gm.add_argument("--mode", choices=["slice", "first_hit"],
+                    default="slice")
+    gm.add_argument("--res", type=int, default=256)
+    gm.add_argument("--slice-height", type=float, default=1500.0)
+    gm.add_argument("--csv-cameras", action="store_true",
+                    help="use CSV camera positions instead of fixed nadir")
+    gm.add_argument("--start", type=int, default=None)
+    gm.add_argument("--end", type=int, default=None)
+    gm.add_argument("--batch", type=int, default=1,
+                    help="patches per call (one march for the chunk)")
+    gm.add_argument("--data-parallel", action="store_true",
+                    help="shard the patch batch over all devices (not "
+                         "ported yet: raises)")
+    _device_arg(gm)
+    gm.set_defaults(fn=cmd_gen_maps)
+
+    gs = sub.add_parser("gen-sequences",
+                        help="stage D: renders+maps -> training npz")
+    gs.add_argument("--images", required=True)
+    gs.add_argument("--maps", required=True)
+    gs.add_argument("--out", required=True)
+    gs.add_argument("--seq-len", type=int, default=12)
+    gs.add_argument("--num-samples", type=int, default=49)
+    gs.add_argument("--map-type", default="w",
+                    help="target channels: one or more of w/u/v; 'wvu' "
+                         "builds the 3-channel target "
+                         "(build_WVU_maps.py:161-174)")
+    gs.add_argument("--map-suffix", default="slice_1500m",
+                    help="suffix of the stage-C map pkls; the "
+                         "default matches gen-maps' default "
+                         "--slice-height 1500")
+    _device_arg(gs)
+    gs.set_defaults(fn=cmd_gen_sequences)
+
+    cg = sub.add_parser("cloud-gate",
+                        help="thresholded synthetic-cloud acceptance run "
+                             "(B/C/D pipeline + training)")
+    cg.add_argument("--work-dir", required=True)
+    cg.add_argument("--out", default=None, help="result json path")
+    cg.add_argument("--production", action="store_true",
+                    help="production geometry (128², base_ch 64)")
+    cg.add_argument("--wvu", action="store_true",
+                    help="3-channel u/v/w target (cloud_wvu.json family)")
+    cg.add_argument("--ms-orders", type=int, default=1,
+                    help="stage-B successive-order scattering")
+    cg.add_argument("--ms-calibrate-spp", type=int, default=0,
+                    help="stage-B MC energy calibration spp "
+                         "(requires --ms-orders > 1)")
+    cg.add_argument("--mc-spp", type=int, default=0,
+                    help="stage B renders with the unbiased MC path "
+                         "tracer at this spp (excludes --ms-orders)")
+    cg.add_argument("--mc-majorant-cell", type=int, default=16,
+                    help="MC: super-voxel majorant grid edge (voxels); "
+                         "only with --mc-spp (0 = global majorant)")
+    cg.add_argument("--mc-spp-chunk", type=int, default=8,
+                    help="MC: samples per dispatch (0 = all spp in one "
+                         "dispatch)")
+    cg.add_argument("--from-nc", action="store_true", dest="from_nc",
+                    help="start one stage earlier: synthesize BOMEX-layout"
+                         " .nc snapshots (h5py) and run the real L0 ingest"
+                         " instead of writing patch pkls directly")
+    cg.add_argument("--model-family", default="custom",
+                    dest="model_family", choices=("custom", "resnet18"),
+                    help="model family the gate trains: custom "
+                         "(TemporalUNetDualView) or resnet18 "
+                         "(PretrainedTemporalUNet)")
+    cg.add_argument("--render-batch", type=int, default=1,
+                    help="stage-B patches per dispatch (one batched "
+                         "program)")
+    cg.add_argument("--seq-len", type=int, default=None, dest="seq_len",
+                    help="sequence length (reference contract: 12, "
+                         "build_sequences.py:15)")
+    cg.add_argument("--n-folders", type=int, default=None, dest="n_folders",
+                    help="time folders (must be >= seq-len)")
+    cg.add_argument("--n-samples", type=int, default=None, dest="n_samples",
+                    help="patches per folder (reference: 49/chunk)")
+    cg.add_argument("--epochs", type=int, default=None)
+    cg.add_argument("--batch-size", type=int, default=None,
+                    dest="batch_size")
+    cg.add_argument("--seed", type=int, default=None,
+                    help="cloud-synthesis seed (a different seed builds a "
+                         "disjoint cloud corpus)")
+    cg.add_argument("--checkpoint-dir", default="", dest="checkpoint_dir",
+                    help="save the gate's best checkpoint here")
+    cg.add_argument("--pretrained-path", default="",
+                    dest="pretrained_path",
+                    help="resnet18 family: local torchvision-format "
+                         "encoder .pth to initialize from")
+    cg.add_argument("--freeze-encoder", action="store_true",
+                    dest="freeze_encoder",
+                    help="resnet18 family: freeze the (pretrained) encoder")
+    cg.add_argument("--reuse-dataset", action="store_true",
+                    dest="reuse_dataset",
+                    help="skip stages B/C/D when the work dir already "
+                         "holds a dataset built with the same "
+                         "dataset-shaping config")
+    _device_arg(cg)
+    cg.set_defaults(fn=cmd_cloud_gate)
     return p
 
 

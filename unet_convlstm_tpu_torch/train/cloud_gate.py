@@ -1,0 +1,554 @@
+"""Cloud-pipeline acceptance gate (counterpart of
+unet_convlstm_tpu/train/cloud_gate.py): the data chain from synthetic
+clouds to a trained model, judged by its val MAE.
+
+Synthesizes physically structured cloud volumes (no real BOMEX .nc is
+needed), pushes them through the FULL offline chain the reference
+runs across machines — stage B radiance renders (render_all.py), stage C
+velocity slice maps (build_WVU_maps.py), stage D sequence assembly
+(build_sequences.py) — trains the custom model, and asserts the final
+val MAE against a threshold (criterion style per the reference's overfit
+gate, overfit_check.py:117). A regression anywhere in B/C/D or the
+trainer turns this red instead of silently producing a different result
+file.
+
+Synthetic clouds: each patch is a sum of random 3-D Gaussian puffs of
+extinction β (cumulus-like, β ≤ ~0.08 m⁻¹); vertical velocity W is tied
+to the cloud structure — updraft ∝ normalized β in the cores with
+subsiding edges — so radiance → W is genuinely learnable and the trained
+MAE measures the whole pipeline, not noise-fitting. U/V are smooth
+drifts. Sequence frames evolve by advecting puff centers, mirroring the
+reference's time-folder layout (preprocessing.py:104-170).
+
+Every stage runs on one device (the card unless ``device`` names another):
+stage B's renderer, stage C's ray casts, stage D's assembly and the
+training run through the port's kernels. Cloud synthesis uses numpy's
+generator from ``seed``, so both packages write the same patches.
+``result["stage_s"]`` holds each stage's wall time.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import shutil
+import time
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+
+@dataclass
+class CloudGateConfig:
+    nz: int = 12
+    nxy: int = 32
+    n_folders: int = 8          # time folders (seq_len per sequence chunk)
+    n_samples: int = 6          # patches per folder
+    seq_len: int = 2
+    render_res: int = 32
+    out_size: int = 32
+    base_ch: int = 8
+    epochs: int = 40
+    batch_size: int = 4
+    voxel_size: float = 20.0
+    w_scale: float = 6.0        # peak updraft [m/s]
+    # Reduced-geometry bar (the JAX package's calibration): val MAE
+    # converges 2.34 -> ~1.1 over 40 epochs; a broken B/C/D or trainer
+    # stalls at ~2.3+. Production geometry (PRODUCTION below) uses the
+    # 0.3 bar of the JAX package's golden run.
+    mae_threshold: float = 1.3
+    seed: int = 0
+    # target channels: "w" (reference MAP_TYPE, C=1) or a multi-letter
+    # string like "wvu" (the 3-channel config, BASELINE.json configs[3])
+    map_type: str = "w"
+    # model family trained by the gate: "custom" (TemporalUNetDualView,
+    # reference train/unet.py:131) or "resnet18" (PretrainedTemporalUNet,
+    # the reference DRIVER's default — main.py:213 USE_PRETRAINED=True,
+    # train/resnet18.py:19). With no ImageNet .pth given, the
+    # resnet gate trains its encoder (freeze_encoder=False, explicit — the
+    # registry would force the same with a warning); base_ch is ignored by
+    # the resnet family (fixed ResNet18 widths).
+    model_family: str = "custom"
+    use_mask: bool = False
+    # The reference's 1.1 radiance threshold (unet.py:279) is calibrated
+    # for Mitsuba spp-8192 renders (in-cloud pixels ≫ 1.1). The synthetic
+    # gate's single/multi-scatter renders peak near ~1.0, so a masked run
+    # needs a threshold that actually selects cloudy pixels.
+    mask_threshold: float = 0.35
+    # stage-B transport (render_batch.render_dataset knobs): ms_orders > 1
+    # adds successive-order scattering; ms_calibrate_spp > 0 additionally
+    # fits each patch's diffuse energy to a Monte-Carlo reference view
+    # (docs/RENDERER.md) — the closest noise-free analog of the
+    # reference's volpath training distribution
+    ms_orders: int = 1
+    ms_calibrate_spp: int = 0
+    # mc_spp > 0 renders stage B with the unbiased Monte-Carlo path
+    # tracer itself (mc_reference.py) — training data of the SAME class
+    # as the reference's volpath spp-8192 renders (render_all.py:28-30),
+    # noise falling as 1/√spp. Mutually exclusive with ms_orders > 1
+    # (render_dataset raises). mc_majorant_cell > 0 turns on the
+    # super-voxel majorant grid (faster on dense-compact puffs; a dataset
+    # knob because it changes the RNG realization).
+    mc_spp: int = 0
+    mc_majorant_cell: int = 0
+    # from_nc = True starts the gate one stage EARLIER: instead of
+    # synthesizing stage-A outputs (patch pkls) directly, it writes
+    # BOMEX-layout netCDF snapshots (QN/NC/TABS/p/U/V/W, one .nc per time
+    # folder — reference preprocessing.py:35-36 geometry at nxy=128/
+    # n_samples=49: a 512×512 grid tiled into 49 overlapping 128² patches
+    # with stride 64) and runs the real L0 ingest
+    # (datagen/lespatch.process_all_nc_files) to produce the patches.
+    # QN is inverted through the actual microphysics (β ∝ QN^{2/3} at
+    # fixed NC/T/p) so the learned radiance→W signal is the same cloud
+    # cartoon as the direct path; what this mode adds is the L0 stage
+    # itself inside the acceptance gate: .nc → patches → renders → maps
+    # → sequences → train → val-MAE threshold, one unbroken chain.
+    from_nc: bool = False
+    # samples per MC dispatch (mc_reference spp chunking): same
+    # realization, bounds the device time of one dispatch
+    mc_spp_chunk: int = 8
+    # render_batch_size > 1 renders that many patches per dispatch as one
+    # batched program. Requires ms_calibrate_spp == 0.
+    render_batch_size: int = 1
+    # Training knobs for the pretrain→freeze transfer flow (all excluded
+    # from DATASET_FIELDS, so reuse_dataset sweeps work):
+    # checkpoint_dir != "" saves the gate's best checkpoint (the PRETRAIN
+    # side: train on one seed, keep the weights); pretrained_path points
+    # the resnet18 family at a local torchvision-format encoder .pth
+    # (save_resnet18_encoder_pth output or a real ImageNet download) and
+    # freeze_encoder freezes it — the reference's frozen-ImageNet
+    # configuration (main.py:213-214, train/resnet18.py:41-44) realized
+    # with locally pretrained features.
+    checkpoint_dir: str = ""
+    pretrained_path: str = ""
+    freeze_encoder: bool = False
+
+
+# config fields that shape the on-disk dataset (stages B/C/D). Training
+# knobs (epochs, batch_size, base_ch, mask/threshold, use_mask) are
+# deliberately excluded: a work dir built once can be retrained under
+# different training configs via ``reuse_dataset`` without re-rendering.
+# Fields that shape the EXPENSIVE stages (patch synthesis + B renders +
+# C maps) vs the cheap stage-D sequence assembly. A reuse_dataset run
+# whose config differs only in SEQUENCE_FIELDS (e.g. map_type w -> wvu,
+# a different seq_len) rebuilds stage D in seconds on the existing
+# renders/maps instead of re-rendering the whole corpus — stage B is
+# ~79 min of MC tracing at the T=12 production geometry.
+RENDER_FIELDS = (
+    "nz", "nxy", "n_folders", "n_samples", "render_res", "voxel_size",
+    "w_scale", "seed", "ms_orders", "ms_calibrate_spp", "mc_spp",
+    "mc_majorant_cell", "mc_spp_chunk", "render_batch_size", "from_nc")
+SEQUENCE_FIELDS = ("seq_len", "out_size", "map_type")
+DATASET_FIELDS = RENDER_FIELDS + SEQUENCE_FIELDS
+
+
+PRODUCTION = CloudGateConfig(
+    nz=32, nxy=128, n_folders=8, n_samples=8, seq_len=2,
+    render_res=256, out_size=128, base_ch=64, epochs=10, batch_size=4,
+    mae_threshold=0.3)
+
+# The multi-channel u/v/w configuration (cloud_wvu.json family): 3 output
+# channels, mask on (reference main.py:219 USE_MASK toggle; per-channel
+# eval rows come from eval.metrics per-channel sums). The horizontal
+# drifts u/v are near-constant fields, so the MAE bar stays at the W bar —
+# u/v converge faster than w.
+PRODUCTION_WVU = dataclasses.replace(
+    PRODUCTION, map_type="wvu", use_mask=True, mae_threshold=0.3)
+
+
+def _puff_fields(cfg: CloudGateConfig, centers: np.ndarray,
+                 shape: tuple):
+    """β from Gaussian puffs at ``centers`` [K, 3] over a ``(nz, ny, nx)``
+    grid; W tied to β cores (same cartoon for patch-sized and full-LES
+    grids)."""
+    nz, ny, nx = shape
+    z, y, x = np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx),
+                          indexing="ij")
+    beta = np.zeros(shape, np.float32)
+    for cz, cy, cx, s in centers:
+        r2 = (((x - cx) / (2.2 * s)) ** 2 + ((y - cy) / (2.2 * s)) ** 2
+              + ((z - cz) / s) ** 2)
+        beta += 0.08 * np.exp(-r2).astype(np.float32)
+    beta[beta < 0.003] = 0.0
+    bmax = beta.max() or 1.0
+    core = beta / bmax
+    # updraft in cores, weak subsidence around them (mass-flux cartoon)
+    w = cfg.w_scale * (core ** 1.5) - 0.8 * cfg.w_scale * core * (1 - core)
+    u = np.full_like(beta, 2.0) + 0.5 * core
+    v = np.full_like(beta, -1.0) - 0.3 * core
+    return {"beta_ext": beta, "U": u.astype(np.float32),
+            "V": v.astype(np.float32), "W": w.astype(np.float32)}
+
+
+def synthesize_cloud_patches(root: str, cfg: CloudGateConfig) -> None:
+    """Numeric time folders of stage-A-style patch pkls; per sample the
+    puffs advect across folders so sequences carry real temporal signal."""
+    rng = np.random.default_rng(cfg.seed)
+    nxy, nz = cfg.nxy, cfg.nz
+    # per-sample initial puffs + drift velocity (voxels/frame)
+    sample_puffs = []
+    for _ in range(cfg.n_samples):
+        k = int(rng.integers(2, 5))
+        centers = np.stack([
+            rng.uniform(nz * 0.3, nz * 0.7, k),
+            rng.uniform(nxy * 0.25, nxy * 0.75, k),
+            rng.uniform(nxy * 0.25, nxy * 0.75, k),
+            rng.uniform(max(2.0, nz * 0.12), nz * 0.3, k)], axis=1)
+        drift = rng.uniform(-1.0, 1.0, size=2)
+        sample_puffs.append((centers, drift))
+    for fi in range(cfg.n_folders):
+        d = os.path.join(root, f"{1000 + 20 * fi:010d}")
+        os.makedirs(d, exist_ok=True)
+        for s, (centers, drift) in enumerate(sample_puffs):
+            c = centers.copy()
+            c[:, 1] += drift[0] * fi
+            c[:, 2] += drift[1] * fi
+            patch = _puff_fields(cfg, c, (cfg.nz, cfg.nxy, cfg.nxy))
+            with open(os.path.join(d, f"sample_{s:03d}.pkl"), "wb") as f:
+                pickle.dump(patch, f)
+
+
+def _grid_factors(n: int) -> tuple:
+    """Factor n into (ry, rx), ry <= rx, as square as possible — the
+    patch-tiling layout that yields exactly n patches per .nc."""
+    ry = int(np.sqrt(n))
+    while ry > 1 and n % ry:
+        ry -= 1
+    return ry, n // ry
+
+
+def synthesize_bomex_nc(nc_dir: str, cfg: CloudGateConfig) -> tuple:
+    """Write ``cfg.n_folders`` BOMEX-layout netCDF-4 snapshots sized so the
+    reference's overlapping tiling (patch ``nxy``, stride ``nxy//2`` — 50%
+    overlap, preprocessing.py:39-41) yields exactly ``cfg.n_samples``
+    patches per file. At the production contract (nxy=128, n_samples=49)
+    the grid is the reference's full 512×512 BOMEX plane
+    (preprocessing.py:35-36).
+
+    Variables per file (h5py; netCDF-4 files are HDF5 containers):
+    ``x``/``y``/``z`` coordinate axes, ``p`` [mb] pressure profile over z,
+    and ``QN`` [g/kg] / ``NC`` [cm⁻³] / ``TABS`` [K] / ``U``/``V``/``W``
+    [m/s] volumes shaped [time=1, z, y, x] — the slice layout
+    generate_patches_from_nc reads (reference preprocessing.py:64-74).
+
+    QN is chosen so the REAL microphysics chain reproduces the cartoon
+    cloud: at fixed NC/T/p, β_ext ∝ QN^{2/3} per voxel (calc_beta.py:13-24
+    — LWC linear in QN, Reff ∝ LWC^{1/3}), so QN = (β_target/β_unit)^{3/2}
+    with β_unit measured by one probe call at QN≡1. Returns
+    ``(stride, (ny, nx))``; the sampled puff ``centers``/``drift`` are
+    saved to ``nc_dir/ground_truth.npz`` so tests can reconstruct the
+    intended fields without replaying the RNG draw order.
+    """
+    import h5py
+
+    os.makedirs(nc_dir, exist_ok=True)
+    rng = np.random.default_rng(cfg.seed)
+    nz, nxy = cfg.nz, cfg.nxy
+    stride = max(1, nxy // 2)
+    ry, rx = _grid_factors(cfg.n_samples)
+    ny = nxy + (ry - 1) * stride
+    nx = nxy + (rx - 1) * stride
+
+    # one LES box: puff density matches the per-patch path, scaled by area
+    area_ratio = (ny * nx) / float(nxy * nxy)
+    k = max(2, int(round(rng.integers(2, 5) * area_ratio)))
+    centers = np.stack([
+        rng.uniform(nz * 0.3, nz * 0.7, k),
+        rng.uniform(nxy * 0.25, ny - nxy * 0.25, k),
+        rng.uniform(nxy * 0.25, nx - nxy * 0.25, k),
+        rng.uniform(max(2.0, nz * 0.12), nz * 0.3, k)], axis=1)
+    drift = rng.uniform(-1.0, 1.0, size=2)   # LES-box wind [voxels/frame]
+    np.savez(os.path.join(nc_dir, "ground_truth.npz"),
+             centers=centers, drift=drift)
+
+    # constant-profile thermodynamics (trade-wind cumulus regime)
+    z_m = np.arange(nz) * cfg.voxel_size
+    p_mb = 1015.0 * np.exp(-z_m / 8500.0)            # [mb]
+    tabs_prof = 298.0 - 6.5e-3 * z_m                 # [K]
+    nc_cm3 = 65.0                                    # [cm⁻³]
+
+    from ..datagen.microphysics import process_cloud_vars
+    tabs = np.broadcast_to(tabs_prof[:, None, None],
+                           (nz, ny, nx)).astype(np.float64)
+    ncd = np.full((nz, ny, nx), nc_cm3, np.float64)
+    _, _, beta_unit = process_cloud_vars(
+        np.ones((nz, ny, nx)), ncd, tabs, p_mb)
+
+    for fi in range(cfg.n_folders):
+        c = centers.copy()
+        c[:, 1] += drift[0] * fi
+        c[:, 2] += drift[1] * fi
+        fields = _puff_fields(cfg, c, (nz, ny, nx))
+        qn = (fields["beta_ext"] / beta_unit) ** 1.5   # [g/kg]
+        path = os.path.join(nc_dir, f"bomex_{1000 + 20 * fi:010d}.nc")
+        with h5py.File(path, "w") as f:
+            f.create_dataset("x", data=np.arange(nx) * cfg.voxel_size)
+            f.create_dataset("y", data=np.arange(ny) * cfg.voxel_size)
+            f.create_dataset("z", data=z_m.astype(np.float64))
+            f.create_dataset("p", data=p_mb)
+            for name, vol in (("QN", qn.astype(np.float32)),
+                              ("NC", ncd.astype(np.float32)),
+                              ("TABS", tabs.astype(np.float32)),
+                              ("U", fields["U"]), ("V", fields["V"]),
+                              ("W", fields["W"])):
+                # uncompressed: overlapping 128² patch reads against a
+                # gzip'd dataset decompress the same chunks 4× over;
+                # contiguous storage keeps stage A I/O-trivial
+                f.create_dataset(name, data=vol[None])
+    return stride, (ny, nx)
+
+
+def run_cloud_gate(work_dir: str, cfg: Optional[CloudGateConfig] = None,
+                   out_json: Optional[str] = None,
+                   verbose: bool = True,
+                   reuse_dataset: bool = False, device=None) -> dict:
+    """Full B/C/D + train + eval; returns the result dict (key
+    ``passed``). Writes ``out_json`` when given.
+
+    ``reuse_dataset=True`` skips stages B/C/D when ``work_dir`` already
+    holds a dataset built with an identical dataset-shaping config
+    (``DATASET_FIELDS``, recorded in a ``gate_dataset.json`` sidecar) —
+    training-knob sweeps (epochs, batch size, mask) then cost seconds
+    instead of re-rendering the whole stage-B corpus. Any mismatch in
+    the sidecar rebuilds from scratch.
+
+    Runs on the card unless ``device`` names another; ``result["stage_s"]``
+    holds the wall time of each stage that ran (``patches``, or ``A``
+    with ``from_nc``; ``B``, ``C``, ``D``, ``train``).
+    """
+    from ..core.dtypes import resolve_device
+    from ..data.npz_dataset import NPZSequenceDataset
+    from ..datagen.overpass import synthesize_overpass_csv
+    from ..datagen.render_batch import render_dataset
+    from ..datagen.sequences import build_trajectory_sequences
+    from ..datagen.velocity_maps import build_velocity_maps
+    from .config import TrainConfig
+    from .loop import fit
+
+    cfg = cfg or CloudGateConfig()
+    if cfg.model_family not in ("custom", "resnet18"):
+        raise ValueError(f"unknown model_family {cfg.model_family!r} "
+                         "(known: custom, resnet18)")
+    dev = resolve_device(device)
+    t0 = time.time()
+    stage_s = {}
+    os.makedirs(work_dir, exist_ok=True)
+    ds_cfg = {k: getattr(cfg, k) for k in DATASET_FIELDS}
+    sidecar = os.path.join(work_dir, "gate_dataset.json")
+    # geometry shared by stages B/C/D — derived from RENDER_FIELDS only,
+    # so a sequence-only rebuild reproduces it exactly
+    box_m = cfg.nxy * cfg.voxel_size
+    slice_h = cfg.nz * cfg.voxel_size * 0.5   # mid-cloud W slice
+    # fov sized so the ~600 km nadir camera sees the whole patch
+    fov = float(np.degrees(2 * np.arctan((box_m / 2) / 600e3))) * 1.1
+    npz = None
+    rebuild_sequences_only = False
+    if reuse_dataset and os.path.exists(sidecar):
+        with open(sidecar) as f:
+            prev = json.load(f)
+        prev_cfg = prev.get("config", {})
+        # sidecars written before a DATASET_FIELDS addition lack the new
+        # key; fill with the dataclass default (the semantics those
+        # datasets were built under) so old datasets stay reusable
+        defaults = CloudGateConfig()
+        for k in DATASET_FIELDS:
+            prev_cfg.setdefault(k, getattr(defaults, k))
+        if prev_cfg == ds_cfg and os.path.exists(prev.get("npz", "")):
+            npz = prev["npz"]
+            if verbose:
+                print(f"[cloud-gate] reusing dataset {npz} "
+                      "(gate_dataset.json config match; stages B/C/D "
+                      "skipped)")
+        elif ({k: prev_cfg.get(k) for k in RENDER_FIELDS} ==
+              {k: ds_cfg[k] for k in RENDER_FIELDS}
+              and os.path.isdir(os.path.join(work_dir, "renders"))
+              and os.path.isdir(os.path.join(work_dir, "maps"))):
+            rebuild_sequences_only = True
+            changed = [k for k in SEQUENCE_FIELDS
+                       if prev_cfg.get(k) != ds_cfg[k]]
+            reason = (f"sequence fields changed: {', '.join(changed)}"
+                      if changed else "dataset npz missing")
+            if verbose:
+                print("[cloud-gate] reusing renders/maps; rebuilding "
+                      f"stage D only ({reason})")
+        elif verbose:
+            print("[cloud-gate] reuse requested but the existing "
+                  "dataset was built with a different render config — "
+                  "rebuilding")
+    if npz is None and rebuild_sequences_only:
+        ts = time.time()
+        npz = build_trajectory_sequences(
+            os.path.join(work_dir, "renders"),
+            os.path.join(work_dir, "maps"),
+            os.path.join(work_dir, "cloud.npz"), seq_len=cfg.seq_len,
+            num_samples=cfg.n_samples, map_type=cfg.map_type,
+            map_suffix=f"slice_{int(slice_h)}m",
+            out_size=(cfg.out_size,) * 2, verbose=verbose, device=dev)
+        stage_s["D"] = time.time() - ts
+        if npz is None:
+            raise RuntimeError("stage D assembled no sequences from the "
+                               "reused renders/maps")
+        with open(sidecar, "w") as f:
+            json.dump({"config": ds_cfg, "npz": npz}, f, indent=2)
+    if npz is None:
+        # A full rebuild into an existing work_dir must not mix corpora:
+        # the stage drivers only ADD folders and stage D scans ALL of
+        # them (sequences.py), so stale outputs from a previous config
+        # (e.g. a larger n_folders) would silently blend into the new
+        # dataset — exactly what the sidecar exists to prevent.
+        for sub in ("patches", "renders", "maps", "nc"):
+            stale = os.path.join(work_dir, sub)
+            if os.path.isdir(stale):
+                shutil.rmtree(stale)
+        patches = os.path.join(work_dir, "patches")
+        ts = time.time()
+        if cfg.from_nc:
+            from ..datagen.lespatch import process_all_nc_files
+            nc_dir = os.path.join(work_dir, "nc")
+            stride, (ny, nx) = synthesize_bomex_nc(nc_dir, cfg)
+            if verbose:
+                print(f"[cloud-gate] stage A: {cfg.n_folders} BOMEX-layout "
+                      f".nc snapshots ({cfg.nz}×{ny}×{nx}) → lespatch "
+                      f"tiling (patch {cfg.nxy}, stride {stride})")
+            counts = process_all_nc_files(nc_dir, patches, verbose=verbose,
+                                          patch_size=cfg.nxy, stride=stride)
+            bad = {os.path.basename(p): c for p, c in counts.items()
+                   if c != cfg.n_samples}
+            if bad:
+                raise RuntimeError(
+                    f"stage A tiling produced unexpected patch counts "
+                    f"(want {cfg.n_samples}/file): {bad}")
+            stage_s["A"] = time.time() - ts
+        else:
+            synthesize_cloud_patches(patches, cfg)
+            stage_s["patches"] = time.time() - ts
+        csv = synthesize_overpass_csv(
+            os.path.join(work_dir, "overpass.csv"),
+            n_times=cfg.n_folders, n_satellites=2)
+
+        ts = time.time()
+        n_renders = render_dataset(
+            patches, os.path.join(work_dir, "renders"), csv,
+            resolution=(cfg.render_res,) * 2, fov_deg=fov,
+            voxel_size=cfg.voxel_size, ms_orders=cfg.ms_orders,
+            ms_calibrate_spp=cfg.ms_calibrate_spp,
+            mc_spp=cfg.mc_spp,
+            mc_majorant_cell=cfg.mc_majorant_cell,
+            mc_spp_chunk=cfg.mc_spp_chunk,
+            batch_size=cfg.render_batch_size,
+            verbose=verbose, device=dev)
+        stage_s["B"] = time.time() - ts
+        expected = cfg.n_folders * cfg.n_samples * 2
+        if n_renders == 0:
+            # the drivers isolate per-sample failures, so a total wipeout
+            # (e.g. a lost device) must fail HERE with the cause,
+            # not as a FileNotFoundError three stages later
+            raise RuntimeError(
+                "stage B wrote no renders — every patch failed (see the "
+                "[render] log lines above for the per-sample errors)")
+        if verbose and n_renders < expected:
+            print(f"[cloud-gate] WARNING: stage B wrote "
+                  f"{n_renders}/{expected} renders; incomplete sequences "
+                  "are skipped downstream")
+        ts = time.time()
+        build_velocity_maps(patches, os.path.join(work_dir, "maps"), csv,
+                            mode="slice",
+                            resolution=(cfg.render_res,) * 2,
+                            slice_height_m=slice_h,
+                            reference_plane_z=slice_h, fov=fov,
+                            verbose=verbose, device=dev)
+        stage_s["C"] = time.time() - ts
+        ts = time.time()
+        npz = build_trajectory_sequences(
+            os.path.join(work_dir, "renders"),
+            os.path.join(work_dir, "maps"),
+            os.path.join(work_dir, "cloud.npz"), seq_len=cfg.seq_len,
+            num_samples=cfg.n_samples, map_type=cfg.map_type,
+            map_suffix=f"slice_{int(slice_h)}m",
+            out_size=(cfg.out_size,) * 2, verbose=verbose, device=dev)
+        stage_s["D"] = time.time() - ts
+        if npz is None:
+            raise RuntimeError("stage D assembled no sequences")
+        with open(sidecar, "w") as f:
+            json.dump({"config": ds_cfg, "npz": npz}, f, indent=2)
+
+    if cfg.model_family == "resnet18":
+        model_cfg = {"type": "resnet18",
+                     "out_channels": len(cfg.map_type),
+                     "freeze_encoder": cfg.freeze_encoder}
+        if cfg.pretrained_path:
+            model_cfg["pretrained_path"] = cfg.pretrained_path
+    else:
+        model_cfg = {"type": "custom", "base_ch": cfg.base_ch,
+                     "out_channels": len(cfg.map_type),
+                     "use_skip_lstm": True, "lstm_layers": 1}
+    tc = TrainConfig(npz_path=npz, batch_size=cfg.batch_size,
+                     epochs=cfg.epochs,
+                     checkpoint_dir=cfg.checkpoint_dir, mesh_data=1,
+                     use_mask=cfg.use_mask,
+                     mask_threshold=cfg.mask_threshold,
+                     guard=True,  # production posture (configs/cloud_*.json)
+                     model=model_cfg)
+    ds = NPZSequenceDataset(npz, mask_threshold=cfg.mask_threshold)
+    if cfg.use_mask:
+        frac = float((ds.X[:, :, 0:1] > cfg.mask_threshold).mean())
+        if frac == 0.0:
+            raise RuntimeError(
+                f"mask_threshold={cfg.mask_threshold} selects no pixels "
+                f"(render max {ds.X.max():.3f}) — masked loss/metrics "
+                "would be vacuously 0; lower the threshold")
+        if verbose:
+            print(f"[cloud-gate] mask fraction {frac:.3f} "
+                  f"at threshold {cfg.mask_threshold}")
+    ts = time.time()
+    res = fit(tc, dataset=ds, verbose=verbose, device=dev)
+    stage_s["train"] = time.time() - ts
+    result = judge_history(res["history"], cfg.mae_threshold)
+    result["config"] = {k: getattr(cfg, k)
+                        for k in cfg.__dataclass_fields__}
+    result["wall_s"] = time.time() - t0
+    result["stage_s"] = stage_s
+    if out_json:
+        with open(out_json, "w") as f:
+            json.dump(result, f, indent=2)
+    if verbose:
+        print(f"[cloud-gate] val MAE {result['first_epoch_val_mae']:.3f} "
+              f"-> best {result['best_val_mae']:.3f}"
+              f" @ep{result['best_epoch']} "
+              f"(final {result['final_val_mae']:.3f}, threshold "
+              f"{cfg.mae_threshold}) "
+              f"{'PASSED' if result['passed'] else 'FAILED'}")
+    return result
+
+
+def judge_history(hist, mae_threshold: float) -> dict:
+    """Gate verdict over a fit() history. Guard-event rows (train/loop.py
+    rollback bookkeeping) carry no val_mae; judge only completed-epoch
+    rows, else one transient spike — the survivable event the guard
+    exists for — crashes the gate instead of being ridden out. The BEST
+    val epoch is judged, matching the reference's best-checkpoint
+    deployment semantics (main.py:306-323, get_metrics.py:67)."""
+    metric_rows = [h for h in hist if "val_mae" in h]
+    if not metric_rows:
+        raise RuntimeError(
+            "training produced no completed-epoch metrics (every epoch "
+            "was a guard rollback) — see guard_events in the history")
+    final_mae = float(metric_rows[-1]["val_mae"])
+    first_mae = float(metric_rows[0]["val_mae"])
+    best = min(metric_rows, key=lambda h: float(h["val_mae"]))
+    best_mae = float(best["val_mae"])
+    return {
+        "best_val_mae": best_mae,
+        "best_val_rmse": float(best["val_rmse"]),
+        "best_epoch": int(best["epoch"]),
+        "final_val_mae": final_mae,
+        "final_val_rmse": float(metric_rows[-1]["val_rmse"]),
+        "first_epoch_val_mae": first_mae,
+        "improved": best_mae < first_mae,
+        "mae_threshold": mae_threshold,
+        "passed": best_mae < mae_threshold and best_mae < first_mae,
+        "history": hist,
+    }
