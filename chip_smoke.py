@@ -107,6 +107,20 @@ non-zero:
               and K2 launches of its training run exact; and the gate at
               nz 8, nxy 16 with stage B on the Monte-Carlo path tracer
               (spp 4, majorant cell 16), its renders reaching stage D.
+15. surface — the rest of the single-card surface: the native gather
+              (g++ at first use) bit-equal to numpy's two passes at the fit
+              phase's batch and at one cloud batch (configs/cloud_wvu.json's
+              channels, B=16, T=12, 128x128), both routes timed on the
+              host; gen-mnist's npz byte-equal to the generator with the
+              numpy paste; make_grain_loader (DataLoader) at 0 and 2
+              workers, 2 shuffled epochs covering the train split;
+              convert-checkpoint --to-torch then --torch-ckpt bit-equal,
+              --quantize then ``evaluate`` of the int8 copy equal to
+              ``evaluate --int8`` with exact K1 and K8 launches and no K2;
+              ``stats`` against numpy, ``inspect`` on phase 14's pkls and an
+              .nc; ``doctor`` exit 0 with every line PASS; the viz modules'
+              numbers against numpy and each drawing drawn or said not
+              drawn. Phase 9 counts its gathers by route (all native).
 
 Phase 2 also holds the gate update forward (K1) where its vector route does
 not go (C = 12, a gates view 2 bytes off a 16-byte boundary), with f32
@@ -147,6 +161,7 @@ import copy
 import dataclasses
 import functools
 import csv
+import glob
 import http.client
 import importlib.util
 import io
@@ -167,6 +182,7 @@ import torch.nn.functional as F
 
 from unet_convlstm_tpu_torch import benchmark
 from unet_convlstm_tpu_torch.cli import main as cli_main
+from unet_convlstm_tpu_torch.data import fast_gather, moving_mnist
 from unet_convlstm_tpu_torch.data.npz_dataset import NPZSequenceDataset
 from unet_convlstm_tpu_torch.data.pipeline import (SequenceLoader,
                                                   prefetch_to_device)
@@ -181,6 +197,7 @@ from unet_convlstm_tpu_torch.eval import (EvalReport, evaluate_model,
                                           rollout_prefix_rerun, rollout_scan,
                                           rollout_streaming)
 from unet_convlstm_tpu_torch.models.registry import build_model
+from unet_convlstm_tpu_torch.native import build as host_build
 from unet_convlstm_tpu_torch.models.temporal_unet import temporal_unet_apply
 from unet_convlstm_tpu_torch.ops.kernels import (build, chained_gather,
                                                  channel_stats, conv_int8,
@@ -2359,12 +2376,14 @@ def phase_fit(workdir: str):
                                  ("resume", ["--resume", last], 1)):
         torch.cuda.synchronize()
         reset_launches()
+        fast_gather.calls_by_route.update(native=0, numpy=0)
         t0 = time.perf_counter()
         out = _cli(["train", "--config", FIT_CONFIG, "--npz", npz, *flags,
                     f"checkpoint_dir={ck}",
                     f"epochs={FIT_EPOCHS + (tag == 'resume')}"])
         runs[tag] = {"wall_s": time.perf_counter() - t0,
                      "launches": path_counts(),
+                     "gather_routes": dict(fast_gather.calls_by_route),
                      "expected": _scaled(per_epoch, n_epochs),
                      "epoch_lines": [ln for ln in out.splitlines()
                                      if ln.startswith("Epoch ")]}
@@ -2416,27 +2435,35 @@ def phase_fit(workdir: str):
                                   PROFILE_STEPS[1] - PROFILE_STEPS[0])}
 
     # the host's data path alone over one epoch of train batches: the
-    # gather (numpy), and the gather with the copies to the card
+    # gather (native, x and y a batch), and the gather with the copies to
+    # the card
     ds = NPZSequenceDataset(npz)
     loader = SequenceLoader(ds, ds.train_val_split(cfg.train_frac,
                                                    cfg.split_seed)[0],
                             cfg.batch_size, seed=cfg.seed,
                             drop_remainder=True)
+    fast_gather.calls_by_route.update(native=0, numpy=0)
     t0 = time.perf_counter()
     for _ in loader:
         pass
     gather_s = time.perf_counter() - t0
+    gather_routes = dict(fast_gather.calls_by_route)
     t0 = time.perf_counter()
     for _ in prefetch_to_device(loader, 2, DEV):
         pass
     torch.cuda.synchronize()
-    data_path = {"batches": len(loader),
+    data_path = {"batches": len(loader), "gather_routes": gather_routes,
                  "gather_ms_per_batch": gather_s / len(loader) * 1e3,
                  "gather_and_copy_ms_per_batch":
                      (time.perf_counter() - t0) / len(loader) * 1e3}
     del ds, loader
 
     ok = (all(r["launches"] == r["expected"] for r in runs.values())
+          and all(r["gather_routes"]["numpy"] == 0
+                  and r["gather_routes"]["native"] > 0
+                  for r in runs.values())
+          and gather_routes == {"native": 2 * data_path["batches"],
+                                "numpy": 0}
           and runs["resume"]["resumed_at_epoch_3"]
           and len(runs["resume"]["epoch_lines"]) == 1
           and runs["resume"]["epoch_lines"][0].startswith(
@@ -3632,6 +3659,458 @@ def phase_datachain(workdir: str):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 15. the rest of the single-card surface
+# ---------------------------------------------------------------------------
+
+SURFACE_B, SURFACE_T = 16, 12     # one cloud batch at 128x128
+GATHER_REPS = 10                  # timed batches per gather route
+SURFACE_EVAL_TOL = 1e-6
+SURFACE_TOL = ("native gather bit-equal to numpy's two passes; gen-mnist "
+               "byte-equal to the numpy paste; the loader's epochs each "
+               "cover every train index once and each batch equals "
+               "get_batch_raw of its indices; the convert-checkpoint round "
+               "trip bit-equal; the --quantize copy's evaluate MAE within "
+               f"{SURFACE_EVAL_TOL} of evaluate --int8 (the same int8 "
+               "weights, dynamic scales both ways), its launches exact; "
+               "stats equal to numpy's; doctor exit 0, every line PASS; viz "
+               "numbers equal to numpy's, every drawing not drawn says so")
+
+
+def _take(total):
+    """The launch counts since the last reset, added into ``total``; the
+    counts are then reset."""
+    torch.cuda.synchronize()
+    counts = k8_counts()
+    total.update(counts)
+    reset_launches()
+    return counts
+
+
+def _gather_case(name, src, idx):
+    """One batch through both routes of gather_transpose: bit-equal, the
+    native route taken, each route's host ms a batch (median)."""
+    before = fast_gather.calls_by_route["native"]
+    native = fast_gather.gather_transpose(src, idx)
+    took_native = fast_gather.calls_by_route["native"] == before + 1
+    equal = bool(np.array_equal(native,
+                                fast_gather.gather_transpose_plain(src,
+                                                                   idx)))
+    ms = {}
+    for route, fn in (
+            ("native", fast_gather.gather_transpose),
+            ("native_1thread", functools.partial(fast_gather.gather_transpose,
+                                                 nthreads=1)),
+            ("numpy", fast_gather.gather_transpose_plain)):
+        ts = []
+        for _ in range(GATHER_REPS):
+            t0 = time.perf_counter()
+            fn(src, idx)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ms[route] = statistics.median(ts)
+    return {"case": name, "src": list(src.shape), "batch": len(idx),
+            "bytes_out": native.nbytes, "bit_equal": equal,
+            "native_route": took_native, "native_host_ms": ms["native"],
+            "native_1thread_host_ms": ms["native_1thread"],
+            "numpy_host_ms": ms["numpy"],
+            "numpy_over_native": ms["numpy"] / ms["native"]}
+
+
+def surface_gather(npz, cfg):
+    """The native gather at the fit phase's batch and at one cloud batch
+    of configs/cloud_wvu.json's channel counts (B=16, T=12, 128x128)."""
+    ds = NPZSequenceDataset(npz)
+    idx = np.sort(ds.train_val_split(cfg.train_frac,
+                                     cfg.split_seed)[0][:cfg.batch_size])
+    with open(EVAL_CONFIG) as f:
+        wvu = json.load(f)["model"]
+    rng = np.random.default_rng(SEED)
+    n = 2 * SURFACE_B
+    cidx = np.sort(rng.choice(n, SURFACE_B, replace=False))
+    cases = [_gather_case("fit_x", ds.X, idx), _gather_case("fit_y", ds.Y,
+                                                            idx)]
+    for name, c in (("cloud_x", 2 * wvu.get("in_channels_per_sat", 1)),
+                    ("cloud_y", wvu.get("out_channels", 1))):
+        src = rng.standard_normal((n, SURFACE_T, c, HW, HW),
+                                  dtype=np.float32)
+        cases.append(_gather_case(name, src, cidx))
+        del src
+    line = {"phase": "surface", "check": "native_gather",
+            "gpp_build_s_first_use": host_build.built_in_s,
+            "library": str(host_build.build_dir() / "libhostio.so"),
+            "host_cpus": os.cpu_count(),
+            "host_cpus_usable": len(os.sched_getaffinity(0)),
+            "threads": fast_gather._NTHREADS,
+            "times": "host ms a batch on the card machine's CPU, median of "
+                     f"{GATHER_REPS}",
+            "cases": cases,
+            "ok": all(c["bit_equal"] and c["native_route"] for c in cases)}
+    emit(line)
+    return line
+
+
+def surface_gen_mnist(npz):
+    """gen-mnist's npz (phase 9, the native paste) against the generator
+    with the numpy paste at the same size and seed."""
+    t0 = time.perf_counter()
+    native_paste = moving_mnist.paste_digit
+    moving_mnist.paste_digit = moving_mnist.paste_digit_plain
+    try:
+        X, Y = moving_mnist.moving_mnist_to_xy(
+            moving_mnist.generate_moving_mnist(TT, FIT_SAMPLES, THW, 2,
+                                               seed=SEED))
+    finally:
+        moving_mnist.paste_digit = native_paste
+    plain_s = time.perf_counter() - t0
+    data = np.load(npz)
+    equal = (X.tobytes() == data["X"].tobytes()
+             and Y.tobytes() == data["Y"].tobytes())
+    line = {"phase": "surface", "check": "gen_mnist", "samples": FIT_SAMPLES,
+            "T": TT, "H": THW, "byte_equal_to_numpy_paste": equal,
+            "numpy_paste_generate_s": plain_s, "ok": equal}
+    emit(line)
+    return line
+
+
+def surface_loader(npz, cfg):
+    """make_grain_loader at worker_count 0 and 2, shuffled, 2 epochs over
+    the fit phase's train split."""
+    from unet_convlstm_tpu_torch.data.pipeline import (_EpochSampler,
+                                                      make_grain_loader)
+
+    # mmap=True writes the .npy sidecars once, before the workers map them
+    ds = NPZSequenceDataset(npz, mmap=True)
+    tr = np.asarray(ds.train_val_split(cfg.train_frac, cfg.split_seed)[0])
+    epochs, n = 2, len(tr)
+    order = tr[list(_EpochSampler(n, True, cfg.seed, epochs))]
+    covered = all(sorted(order[e * n:(e + 1) * n]) == sorted(tr)
+                  for e in range(epochs))
+    runs = []
+    for workers in (0, 2):
+        t0 = time.perf_counter()
+        batches = list(make_grain_loader(ds, tr, cfg.batch_size,
+                                         shuffle=True, seed=cfg.seed,
+                                         worker_count=workers,
+                                         num_epochs=epochs))
+        wall = time.perf_counter() - t0
+        pos, equal = 0, True
+        for x, y in batches:
+            xr, yr = ds.get_batch_raw(order[pos:pos + len(x)])
+            equal = equal and np.array_equal(x, xr) and np.array_equal(y, yr)
+            pos += len(x)
+        runs.append({"worker_count": workers, "batches": len(batches),
+                     "samples": pos, "batches_equal_get_batch_raw": equal,
+                     "wall_s": wall,
+                     "host_ms_per_batch": wall / len(batches) * 1e3})
+        del batches
+    ok = covered and all(r["batches_equal_get_batch_raw"]
+                         and r["samples"] == epochs * n for r in runs)
+    line = {"phase": "surface", "check": "grain_loader", "epochs": epochs,
+            "train_indices": n, "B": cfg.batch_size,
+            "each_epoch_covers_every_index_once": covered, "runs": runs,
+            "ok": ok}
+    emit(line)
+    return line
+
+
+def surface_convert(workdir, npz, cfg, total):
+    """convert-checkpoint --to-torch then --torch-ckpt of the fit phase's
+    best checkpoint; --quantize, then evaluate of the int8 copy against
+    evaluate --int8 of the float checkpoint, the copy's launches exact."""
+    ck = os.path.join(workdir, "ckpts", "custom_best.pt")
+    ref = os.path.join(workdir, "surface_ref.pt")
+    conv = os.path.join(workdir, "surface_conv")
+    _cli(["convert-checkpoint", "--checkpoint", ck, "--to-torch", ref])
+    _cli(["convert-checkpoint", "--torch-ckpt", ref, "--out-dir", conv])
+    state, meta = restore_checkpoint(ck)
+    back, bmeta = restore_checkpoint(os.path.join(conv,
+                                                  "custom_converted.pt"))
+    bit_equal = (state.keys() == back.keys()
+                 and all(torch.equal(state[k], back[k]) for k in state))
+    model_cfg = meta["config"].get("model", meta["config"])
+    # Moving-MNIST: X has 2 channels (one a satellite), Y 1
+    want_cfg = {**{k: model_cfg[k] for k in ("base_ch", "lstm_layers",
+                                             "use_skip_lstm",
+                                             "use_attention")},
+                "in_channels_per_sat": 1, "out_channels": 1}
+    got_cfg = {k: bmeta["config"].get(k) for k in want_cfg}
+
+    q = os.path.join(workdir, "surface_int8.pt")
+    _cli(["convert-checkpoint", "--checkpoint", ck, "--quantize", q])
+    _, qmeta = restore_checkpoint(q)
+    evals = math.ceil((FIT_SAMPLES - int(cfg.train_frac * FIT_SAMPLES))
+                      / cfg.batch_size)
+    per_pass = [(*c[:-1], c[-1] * evals) for c in k8_custom_convs(
+        cfg.model["base_ch"], THW, cfg.batch_size, TT)]
+    expect = dict(on_main_routes(dict(NO_LAUNCHES,
+                                      gate_update=evals * K1_PER_STEP,
+                                      gate_update_bwd=0, conv3x3_fused=0)),
+                  **k8_expect(per_pass))
+    maes, counts = {}, {}
+    for tag, argv in (("int8_copy", ["--checkpoint", q]),
+                      ("int8_flag", ["--checkpoint", ck, "--int8"])):
+        _take(total)
+        out_dir = os.path.join(workdir, f"surface_eval_{tag}")
+        _cli(["evaluate", *argv, "--npz", npz, "--out-dir", out_dir,
+              "--batch-size", str(cfg.batch_size)])
+        counts[tag] = _take(total)
+        with open(os.path.join(out_dir, "report.json")) as f:
+            maes[tag] = json.load(f)["mae"]
+    diff = abs(maes["int8_copy"] - maes["int8_flag"])
+    # one request served from the int8 copy, no --int8 flag
+    pred = StreamingPredictor(q, device=DEV)
+    frame = NPZSequenceDataset(npz, mmap=True).get_batch_raw(
+        np.array([0]))[0][:, :1]
+    sid = pred.open_session(1, THW, THW)
+    _take(total)
+    y = pred.predict(sid, frame)
+    serve = {"int8": pred.int8, "launches": _take(total),
+             "expected": dict(on_main_routes(dict(
+                 NO_LAUNCHES, gate_update=sum(n for *_, n in k1_levels(
+                     cfg.model["base_ch"], THW, 1)),
+                 gate_update_bwd=0, conv3x3_fused=0)), **k8_expect(
+                     k8_custom_convs(cfg.model["base_ch"], THW, 1, 1))),
+             "finite": bool(np.isfinite(y).all())}
+    del pred
+    line = {"phase": "surface", "check": "convert_checkpoint",
+            "round_trip_model_state_bit_equal": bit_equal,
+            "inferred_config": got_cfg, "training_config": want_cfg,
+            "int8_meta": bool(qmeta.get("int8")),
+            "evaluate_mae": maes, "mae_abs_diff": diff,
+            "tol": SURFACE_EVAL_TOL, "eval_batches": evals,
+            "launches_int8_copy": counts["int8_copy"],
+            "launches_int8_flag": counts["int8_flag"], "expected": expect,
+            "serve_int8_copy": serve,
+            "ok": (bit_equal and got_cfg == want_cfg and qmeta.get("int8")
+                   is True and diff <= SURFACE_EVAL_TOL
+                   and counts["int8_copy"] == expect
+                   and counts["int8_flag"] == expect and serve["int8"]
+                   and serve["launches"] == serve["expected"]
+                   and serve["finite"])}
+    emit(line)
+    return line
+
+
+def _one_pkl(root):
+    hits = sorted(glob.glob(os.path.join(root, "*", "*.pkl")))
+    if not hits:
+        raise AssertionError(f"no pkl under {root}")
+    return hits[0]
+
+
+def surface_stats_inspect(workdir, npz, gate):
+    """``stats`` on the fit phase's npz against numpy; ``inspect`` on a
+    stage-B render and a stage-C map of phase 14's gate, and on an .nc."""
+    stats = json.loads(_cli(["stats", "--npz", npz]))
+    Y = np.load(npz)["Y"]
+    nz = Y[Y != 0]
+    want = {"min": float(Y.min()), "max": float(Y.max()),
+            "nonzero_fraction": float((Y != 0).mean()),
+            "nonzero_mean": float(nz.mean()) if nz.size else 0.0}
+    del Y, nz
+    inspected = {}
+    for stage in ("renders", "maps"):
+        path = _one_pkl(os.path.join(gate, stage))
+        desc = json.loads(_cli(["inspect", path]))
+        with open(path, "rb") as f:
+            raw = pickle.load(f)
+        inspected[stage] = {
+            "path": os.path.relpath(path, gate), "json": desc,
+            "ok": desc.keys() == raw.keys() and all(
+                desc[k]["shape"] == list(v.shape) for k, v in raw.items()
+                if isinstance(v, np.ndarray))}
+    nc = os.path.join(workdir, "surface.nc")
+    readers = [m for m in ("netCDF4", "h5py")
+               if importlib.util.find_spec(m) is not None]
+    if readers:
+        import h5py   # the CLI reads it with either; h5py writes it here
+
+        with h5py.File(nc, "w") as f:
+            f["z"] = np.arange(4.0)
+        nc_line = json.loads(_cli(["inspect", nc]))
+        nc_ok = nc_line["z"]["shape"] == [4]
+    else:
+        with open(nc, "wb") as f:
+            f.write(b"\x89HDF\r\n\x1a\n" + bytes(64))
+        try:
+            _cli(["inspect", nc])
+            nc_line, nc_ok = "no error", False
+        except ImportError as e:
+            nc_line = (f"ImportError: {e} (this machine has neither netCDF4 "
+                       "nor h5py, so .nc files cannot be read here)")
+            nc_ok = "neither netCDF4 nor h5py" in str(e)
+    line = {"phase": "surface", "check": "stats_inspect", "stats": stats,
+            "numpy": want, "inspect": inspected, "nc": nc_line,
+            "ok": (stats == want and nc_ok
+                   and all(v["ok"] for v in inspected.values()))}
+    emit(line)
+    return line
+
+
+def surface_doctor(proc, t0):
+    """``doctor`` as a user runs it (``proc``, started at ``t0`` while the
+    other checks ran): exit 0, every line PASS, each CUDA source and the
+    host kernels listed."""
+    stdout, stderr = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("[")]
+    listed = {src.name: any(f"kernel source {src.name}" in ln
+                            for ln in lines)
+              for src in build.sources().values()}
+    ok = (proc.returncode == 0 and bool(lines)
+          and all(ln.startswith("[PASS]") for ln in lines)
+          and all(listed.values())
+          and any("native hostio" in ln for ln in lines))
+    line = {"phase": "surface", "check": "doctor", "rc": proc.returncode,
+            "lines": stdout.splitlines(), "sources_listed": listed,
+            "wall_s": wall, "stderr_tail": stderr[-2000:], "ok": ok}
+    emit(line)
+    return line
+
+
+def surface_viz(workdir, npz, gate):
+    """Each ported viz module on this machine: its numbers against numpy,
+    and each drawing call drawn or saying what it did not draw."""
+    from unet_convlstm_tpu_torch.viz import (checks, dashboard3d,
+                                             legacy_viewer, sequences_video,
+                                             viewers)
+
+    avail = _viz_available()
+    vdir = os.path.join(workdir, "surface_viz")
+    os.makedirs(vdir, exist_ok=True)
+    rng = np.random.default_rng(SEED)
+    u, v, w = rng.standard_normal((3, 16, 64, 64))
+    beta = np.zeros((16, 64, 64))
+    beta[4:9, 20:40, 20:40] = 0.1
+    render_pkl = _one_pkl(os.path.join(gate, "renders"))
+    map_pkl = _one_pkl(os.path.join(gate, "maps"))
+    with open(render_pkl, "rb") as f:
+        render = pickle.load(f)["render"]
+    with open(map_pkl, "rb") as f:
+        maps = pickle.load(f)
+    legacy = os.path.join(vdir, "legacy")
+    os.makedirs(legacy)
+    for t in range(3):
+        with open(os.path.join(legacy, f"sample_{t}_3_7.pkl"), "wb") as f:
+            pickle.dump({"tensors": rng.random((1, 3, 16, 16)),
+                         "target_slice": rng.random((9, 1, 16, 16))}, f)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        div = checks.divergence_check(u, v, w, beta, 20.0, vdir)
+        spot = checks.spot_check_maps(map_pkl, render_pkl, vdir)
+        drawn = {
+            "volume figure": checks.volume_check(
+                beta, os.path.join(vdir, "vol.png")),
+            "Moving-MNIST video": viewers.moving_mnist_video(
+                npz, os.path.join(vdir, "mm.mp4"), sample_idx=0),
+            "sample panel": viewers.show_sample_panel(
+                npz, os.path.join(vdir, "panel.png")),
+            "mask-tuning video": sequences_video.create_mask_tuning_video(
+                rng.random((3, 2, 32, 32)) * 3,
+                os.path.join(vdir, "mask.mp4")),
+            "legacy sequence video": legacy_viewer.animate_sequence(
+                legacy_viewer.PKLSequenceDataset(legacy, 2, 1), 0,
+                os.path.join(vdir, "legacy.mp4")),
+            "dashboard frame": dashboard3d.compose_dashboard_frame(
+                [render, render], [maps["w_map"], None],
+                np.zeros((40, 30, 3), np.uint8)),
+            "dashboard video": dashboard3d.create_dashboard_3d(
+                os.path.join(gate, "renders"), os.path.join(gate, "maps"),
+                os.path.join(gate, "overpass.csv"), 0,
+                os.path.join(vdir, "dash.mp4"), verbose=False) or None,
+        }
+    said = buf.getvalue()
+    needs = {"divergence figures": ("matplotlib",),
+             "spot-check PNGs": ("matplotlib",),
+             "volume figure": ("matplotlib",),
+             "Moving-MNIST video": ("matplotlib", "cv2"),
+             "sample panel": ("matplotlib",),
+             "mask-tuning video": ("matplotlib", "cv2"),
+             "legacy sequence video": ("matplotlib", "cv2"),
+             "dashboard frame": ("cv2",),
+             "dashboard video": ("matplotlib", "cv2")}
+    drawing = {}
+    for what, mods in needs.items():
+        if all(avail[m] for m in mods):
+            drawing[what] = ("drawn" if what not in drawn
+                             or drawn[what] is not None else "MISSING")
+        else:
+            drawing[what] = ("said not drawn"
+                             if f"{what} not drawn:" in said
+                             and drawn.get(what) is None else "SILENT")
+    want_div = np.gradient(u, 20.0)[2] + np.gradient(v, 20.0)[1] + \
+        np.gradient(w, 20.0)[0]
+
+    def rng_stats(a):
+        return {"min": float(np.nanmin(a)), "max": float(np.nanmax(a)),
+                "nan_frac": float(np.isnan(a).mean())}
+
+    want_spot = {k: rng_stats(maps[k]) for k in ("u_map", "v_map", "w_map")}
+    want_spot["render"] = rng_stats(render)
+    panel = dashboard3d.jet_panel(maps["w_map"])
+    gray = dashboard3d.gray_gamma_panel(render)
+    r32 = np.asarray(render, np.float32)
+    numbers = {
+        "divergence": div == {
+            "mean_abs_divergence": float(np.mean(np.abs(want_div))),
+            "max_abs_divergence": float(np.max(np.abs(want_div))),
+            "std_divergence": float(np.std(want_div))},
+        "spot_check": spot == want_spot,
+        "describe_pkl": viewers.describe_pkl(map_pkl).keys() == maps.keys(),
+        "jet_panel": (panel.shape == maps["w_map"].shape + (3,)
+                      and panel.dtype == np.uint8
+                      and bool((panel[np.isnan(maps["w_map"])] == 0).all())),
+        "gray_gamma_panel": bool(np.array_equal(gray[..., 0], (np.power(
+            (r32 - r32.min()) / (r32.max() - r32.min()), 0.5)
+            * 255).astype(np.uint8))),
+        "legacy_windows": len(legacy_viewer.PKLSequenceDataset(legacy, 2,
+                                                               1)) == 2}
+    line = {"phase": "surface", "check": "viz", "available": avail,
+            "numbers_equal_numpy": numbers, "drawing": drawing,
+            "said": said.splitlines(),
+            "ok": all(numbers.values()) and all(
+                d in ("drawn", "said not drawn") for d in drawing.values())}
+    emit(line)
+    return line
+
+
+def phase_surface(workdir: str, npz: str, chaindir: str):
+    """Phase 15: the native gather, gen-mnist's paste, the DataLoader-based
+    grain loader, convert-checkpoint with the int8 copy through evaluate,
+    stats and inspect, doctor, and the viz modules. Returns the launch
+    counts of the phase."""
+    t0 = time.perf_counter()
+    with open(FIT_CONFIG) as f:
+        cfg = TrainConfig.from_dict(json.load(f))
+    gate = os.path.join(chaindir, "gate")
+    total = collections.Counter()
+    _take(total)
+    total.clear()
+    lines = [surface_gather(npz, cfg)]   # timed on an otherwise idle host
+    t_doctor = time.perf_counter()
+    doctor = subprocess.Popen([sys.executable, "-m",
+                               "unet_convlstm_tpu_torch", "doctor"],
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+    try:
+        lines += [surface_gen_mnist(npz), surface_loader(npz, cfg),
+                  surface_convert(workdir, npz, cfg, total),
+                  surface_stats_inspect(workdir, npz, gate),
+                  surface_viz(workdir, npz, gate),
+                  surface_doctor(doctor, t_doctor)]
+    finally:
+        if doctor.poll() is None:
+            doctor.kill()
+            doctor.wait()
+    _take(total)
+    failed = [ln["check"] for ln in lines if not ln["ok"]]
+    emit({"phase": "surface", "check": "summary", "failed": failed,
+          "wall_s": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError(f"surface checks failed: {failed}")
+    return dict(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3683,7 +4162,8 @@ def main() -> int:
                    "--int8 on the training run's checkpoint: dynamic int8 "
                    "with K8 equal to it with K8's plain version (1e-6), "
                    f"calibrated at most {INT8_EVAL_SANITY}x the bf16 MAE "
-                   "(the ratio reported against BASELINE.md's 10%)")})
+                   "(the ratio reported against BASELINE.md's 10%)"),
+          "surface": SURFACE_TOL})
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     k1 = check_k1(gen, K1_LEVELS, B, "request")
     k1_edges = check_k1_edges(gen)
@@ -3722,9 +4202,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         int8_counts = phase_int8(workdir, npz, bf16_mae,
                                  os.path.join(workdir, "resnet18.pt"), smi)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as workdir:
-        chain_counts = phase_datachain(workdir)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as chaindir:
+            chain_counts = phase_datachain(chaindir)
+            torch.cuda.empty_cache()
+            surface_counts = phase_surface(workdir, npz, chaindir)
 
     per = f"one request: B={B}, T={T}, {HW}x{HW}, base_ch {BASE}, bf16"
     per_step = (f"one training step: B={TB}, T={TT}, {THW}x{THW}, base_ch "
@@ -3879,6 +4361,8 @@ def main() -> int:
                        "ms", "ms_dynamic", "ms_int8_input", "plain_ms",
                        "cudnn_bf16_ms", "int_mm_ms", "int_mm_null_launches",
                        "bound_ms", "launches_per_pass", "routes")}}})
+    for k in kernels:
+        k["surface_launches"] = surface_counts.get(k["name"], 0)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

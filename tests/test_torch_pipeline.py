@@ -1,6 +1,6 @@
 """The port's loader against the JAX package's: the same batches in the same
 order for three epochs, including a loader resumed at a later epoch;
-``pad_batch``; the CPU prefetch."""
+``pad_batch``; the CPU prefetch; the grain loader's order."""
 
 import numpy as np
 import pytest
@@ -75,5 +75,11 @@ def test_prefetch_on_cpu_keeps_order_and_runs_ahead():
 
 
 def test_grain_loader_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tpipe.make_grain_loader(None, np.arange(3), 2)
+    """Kept under its first name: make_grain_loader raised until the loader
+    was ported. It now yields the dataset's raw batches, in order without
+    shuffling (its parity with the JAX grain loader:
+    tests/test_torch_grain_loader.py)."""
+    batches = list(tpipe.make_grain_loader(_Indices(), np.array([4, 1, 2]),
+                                           2, shuffle=False))
+    assert [b[1].tolist() for b in batches] == [[4, 1], [2]]
+    assert [b[0].tolist() for b in batches] == [[40, 10], [20]]

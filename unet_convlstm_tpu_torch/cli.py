@@ -1,7 +1,8 @@
 """Command line (counterpart of unet_convlstm_tpu/cli.py; ``train``,
 ``evaluate``, ``rollout``, ``overfit``, ``gen-mnist``, ``serve``, ``bench``,
 the data chain's ``gen-patches``, ``gen-renders``, ``gen-maps`` and
-``gen-sequences``, and ``cloud-gate`` so far).
+``gen-sequences``, ``cloud-gate``, and ``stats``, ``inspect``,
+``convert-checkpoint`` and ``doctor``).
 
     python -m unet_convlstm_tpu_torch gen-mnist --out mm.npz --seq-len 10 \\
         --num-samples 2000 --xy
@@ -25,9 +26,19 @@ the data chain's ``gen-patches``, ``gen-renders``, ``gen-maps`` and
     python -m unet_convlstm_tpu_torch gen-sequences --images renders \\
         --maps maps --out cloud.npz
     python -m unet_convlstm_tpu_torch cloud-gate --work-dir gate --production
+    python -m unet_convlstm_tpu_torch stats --npz mm.npz [--out-dir figs]
+    python -m unet_convlstm_tpu_torch inspect renders/100/sample_000_view_0.pkl
+    python -m unet_convlstm_tpu_torch convert-checkpoint --torch-ckpt ref.pt \\
+        --out-dir ckpts        # -> ckpts/custom_converted.pt
+    python -m unet_convlstm_tpu_torch convert-checkpoint \\
+        --checkpoint ckpts/custom_best.pt --to-torch ref.pt
+    python -m unet_convlstm_tpu_torch convert-checkpoint \\
+        --checkpoint ckpts/custom_best.pt --quantize ckpts/custom_int8.pt
+    python -m unet_convlstm_tpu_torch doctor [--device cpu]
 
-Runs on the card unless ``--device cpu`` is given (``gen-patches`` is host
-numpy and reads the .nc files with netCDF4 or h5py). ``evaluate`` draws its
+Runs on the card unless ``--device cpu`` is given (``gen-patches``,
+``stats``, ``inspect`` and ``convert-checkpoint`` are host work; the .nc
+files are read with netCDF4 or h5py). ``evaluate`` draws its
 figures and ``rollout`` its video where matplotlib (and cv2) are installed;
 otherwise each says what it did not draw and writes everything else.
 """
@@ -78,23 +89,19 @@ def cmd_train(args) -> None:
 
 
 def _load_checkpoint_for_eval(ckpt_path: str, device=None):
-    """A ``.pt`` checkpoint → (model on the device in eval mode, apply_fn
-    with both kernel flags on, init_state, meta, norm_stats or None)."""
-    import torch
-
+    """A ``.pt`` checkpoint → (model on the device in eval mode, int8 when
+    the checkpoint is, apply_fn with both kernel flags on, init_state, meta,
+    norm_stats or None)."""
     from .core.dtypes import resolve_device
-    from .models.registry import build_model
+    from .models.registry import build_model, model_from_checkpoint
     from .ops.normalize import NormStats
     from .train.checkpoint import restore_checkpoint
 
-    dev = resolve_device(device)
     model_state, meta = restore_checkpoint(ckpt_path)
     model_cfg = dict(meta["config"].get("model", meta["config"]))
     _, init, apply_fn, init_state = build_model(model_cfg)
-    with torch.device("meta"):
-        model = init()
-    model.load_state_dict(model_state, strict=True, assign=True)
-    model = model.to(dev).eval()
+    model = model_from_checkpoint(init, model_state, meta,
+                                  resolve_device(device))
     # the training loop's binding (train/loop.py): the kernels on the card
     apply_fn = functools.partial(apply_fn, use_pallas=True,
                                  use_fused_doubleconv=True)
@@ -137,7 +144,7 @@ def cmd_evaluate(args) -> None:
         raise NotImplementedError(MULTI_DEVICE)
     model, apply_fn, _, meta, norm_stats = _load_checkpoint_for_eval(
         args.checkpoint, args.device)
-    if args.int8:
+    if args.int8 and not meta.get("int8"):
         model = quantize_model(model)
     dataset = NPZSequenceDataset(args.npz, stats=norm_stats)
     indices = np.arange(len(dataset)) if args.split == "all" else None
@@ -182,9 +189,9 @@ def cmd_rollout(args) -> None:
     from .ops.normalize import compute_mask, denormalize_y, normalize_x
     from .ops.quant import quantize_model
 
-    model, apply_fn, init_state, _, norm_stats = _load_checkpoint_for_eval(
+    model, apply_fn, init_state, meta, norm_stats = _load_checkpoint_for_eval(
         args.checkpoint, args.device)
-    if args.int8:
+    if args.int8 and not meta.get("int8"):
         model = quantize_model(model)
     dev = next(model.parameters()).device
     dataset = NPZSequenceDataset(args.npz, stats=norm_stats)
@@ -388,6 +395,203 @@ def cmd_cloud_gate(args) -> None:
                          reuse_dataset=args.reuse_dataset,
                          device=args.device)
     raise SystemExit(0 if res["passed"] else 1)
+
+
+def cmd_stats(args) -> None:
+    """Global min/max and nonzero stats of one npz array, as JSON
+    (viz.checks.dataset_stats; the histogram where matplotlib imports)."""
+    from .viz.checks import dataset_stats
+
+    print(json.dumps(dataset_stats(args.npz, args.key, args.out_dir),
+                     indent=2))
+
+
+def cmd_inspect(args) -> None:
+    """Keys, shapes and ranges of a pipeline artifact as JSON (the
+    reference's read_pkl.py and read_nc.py in one subcommand)."""
+    from .viz.viewers import describe_nc, describe_pkl
+
+    # by content, not extension: NetCDF-4 is an HDF5 container (magic
+    # \x89HDF), and .nc4/.NC spellings exist
+    with open(args.path, "rb") as f:
+        magic = f.read(8)
+    if magic.startswith(b"\x89HDF"):
+        desc = describe_nc(args.path)
+    elif magic.startswith(b"CDF"):
+        raise SystemExit(
+            f"{args.path} is classic NetCDF-3; only NetCDF-4 (HDF5) files "
+            "are read — BOMEX LES outputs are NetCDF-4")
+    else:
+        desc = describe_pkl(args.path)
+    print(json.dumps(desc, indent=2, default=str))
+
+
+def _quantize_checkpoint(src: str, dst: str) -> None:
+    """``--quantize``: ``quantize_model``'s state dict of checkpoint
+    ``src`` at ``dst``, with ``int8: true`` in its metadata and the
+    optimizer state left out."""
+    from .models.registry import build_model, model_from_checkpoint
+    from .ops.quant import quantize_model
+    from .train.checkpoint import restore_checkpoint, save_checkpoint
+
+    model_state, meta = restore_checkpoint(src)
+    if meta.get("int8"):
+        raise SystemExit(f"{src} is int8 already")
+    cfg = meta["config"]
+    _, init, _, _ = build_model(cfg.get("model", cfg))
+    qmodel = quantize_model(model_from_checkpoint(init, model_state, meta,
+                                                  "cpu"))
+    extra = {k: v for k, v in meta.items()
+             if k not in ("config", "norm_stats", "optimizer")}
+    save_checkpoint(dst, qmodel.state_dict(), cfg, meta.get("norm_stats"),
+                    **dict(extra, int8=True))
+
+
+def cmd_convert_checkpoint(args) -> None:
+    """A reference torch checkpoint ({model_state, config, ...}, reference
+    main.py:307-323) → this package's checkpoint format, or with
+    --to-torch one of this package's checkpoints back to the reference's
+    format, or with --quantize an int8 copy of one."""
+    import math
+
+    import torch
+
+    from .models.registry import build_model
+    from .train.checkpoint import restore_checkpoint, save_checkpoint
+    from .utils.torch_weights import (read_reference_checkpoint,
+                                      reference_model_config,
+                                      to_reference_checkpoint)
+
+    if args.quantize:
+        if not args.checkpoint:
+            raise SystemExit("--quantize requires --checkpoint <a .pt "
+                             "checkpoint of this package>")
+        _quantize_checkpoint(args.checkpoint, args.quantize)
+        print(f"quantized {args.checkpoint} -> {args.quantize} (int8 convs; "
+              "evaluate, rollout and serve load it as int8 with no flag)")
+        return
+    if args.to_torch:
+        if not args.checkpoint:
+            raise SystemExit("--to-torch requires --checkpoint <a .pt "
+                             "checkpoint of this package>")
+        blob = to_reference_checkpoint(*restore_checkpoint(args.checkpoint))
+        save_checkpoint(args.to_torch, blob.pop("model_state"),
+                        blob.pop("config"), **blob)
+        print(f"exported {args.checkpoint} -> {args.to_torch} (reference "
+              "main.py checkpoint format)")
+        return
+    if not args.torch_ckpt:
+        raise SystemExit("--torch-ckpt is required (or --checkpoint with "
+                         "--to-torch for the reverse direction)")
+    ckpt = read_reference_checkpoint(args.torch_ckpt)
+    cfg = reference_model_config(ckpt, args.model_type)
+    # the reference's resnet lstm_skips.0 has no counterpart here
+    sd = {k: v for k, v in ckpt.get("model_state", ckpt).items()
+          if not k.startswith("lstm_skips.0.")}
+    _, init, _, _ = build_model(cfg)
+    with torch.device("meta"):   # the weights must fit the config
+        init().load_state_dict(sd, strict=True, assign=True)
+    path = save_checkpoint(
+        os.path.join(args.out_dir, f"{cfg['type']}_converted.pt"), sd, cfg,
+        ckpt.get("norm_stats"),
+        val_loss=float(ckpt.get("val_loss", math.nan)),
+        epoch=int(ckpt.get("epoch", 0)),
+        converted_from=os.path.abspath(args.torch_ckpt))
+    print(f"converted {args.torch_ckpt} -> {path}")
+
+
+DOCTOR_PROBE = """
+import sys, torch
+dev = sys.argv[1]
+x = torch.ones(128, 128, device=dev)
+total = float((x @ x).sum())
+name = torch.cuda.get_device_name(dev) if dev != "cpu" else "cpu"
+print("PROBE_OK", name, total)
+"""
+
+
+def cmd_doctor(args) -> None:
+    """Checks of the environment the port runs in, one PASS or FAIL line
+    each; exits non-zero on any FAIL. On the card: nvcc, the build and load
+    of each CUDA source, the native host kernels, a device probe bounded
+    by --device-timeout in a subprocess (a wedged card reports TIMED OUT
+    rather than hanging) and a writable build directory. With --device cpu
+    the CUDA lines are not applicable and the probe runs on the CPU."""
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from .native import build as host_build
+    from .ops.kernels import build
+
+    failures = []
+
+    def check(name, ok, detail=""):
+        print(f"[{'PASS' if ok else 'FAIL'}] {name}"
+              + (f": {detail}" if detail else ""), flush=True)
+        if not ok:
+            failures.append(name)
+
+    cpu = args.device == "cpu"
+    print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+          f"cuda {torch.version.cuda}  numpy {np.__version__}")
+    if cpu:
+        check("nvcc", True, "not applicable (--device cpu)")
+        check("CUDA kernels (csrc/*.cu)", True,
+              "not applicable (--device cpu)")
+    else:
+        try:
+            check("nvcc", True, build._nvcc())
+            build.build_all()
+            built = True
+        except RuntimeError as e:
+            check("nvcc and the CUDA kernel build", False, str(e)[-2000:])
+            built = False
+        for name, src in build.sources().items():
+            if built:
+                try:
+                    build.load(name)
+                    check(f"kernel source {src.name}", True,
+                          str(build.build_dir() / f"lib{name}.so"))
+                except OSError as e:
+                    check(f"kernel source {src.name}", False, str(e))
+            else:
+                check(f"kernel source {src.name}", False, "not built")
+    try:
+        host_build.load_hostio()
+        secs = host_build.built_in_s
+        check("native hostio (g++)", True,
+              f"{host_build.build_dir() / 'libhostio.so'}"
+              + (f", built in {secs:.2f} s" if secs is not None
+                 else ", built already"))
+    except RuntimeError as e:
+        check("native hostio (g++)", False, str(e)[-2000:])
+    dev = "cpu" if cpu else (args.device or "cuda")
+    try:
+        r = subprocess.run([sys.executable, "-c", DOCTOR_PROBE, dev],
+                           capture_output=True, text=True,
+                           timeout=args.device_timeout)
+        ok = "PROBE_OK" in r.stdout
+        check(f"device probe ({dev}: a 128x128 matmul)", ok,
+              r.stdout.strip().splitlines()[-1] if ok else
+              (r.stderr.strip().splitlines() or ["no output"])[-1])
+    except subprocess.TimeoutExpired:
+        check(f"device probe ({dev}: a 128x128 matmul)", False,
+              f"TIMED OUT after {args.device_timeout} s: the device does "
+              "not answer")
+    try:
+        build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+        with tempfile.NamedTemporaryFile(dir=build.BUILD_ROOT):
+            pass
+        check("build directory writable", True, str(build.BUILD_ROOT))
+    except OSError as e:
+        check("build directory writable", False, str(e))
+    if failures:
+        raise SystemExit(f"doctor: {len(failures)} check(s) failed: "
+                         + ", ".join(failures))
+    print("doctor: all checks passed")
 
 
 def _device_arg(p) -> None:
@@ -649,6 +853,51 @@ def build_parser() -> argparse.ArgumentParser:
                          "dataset-shaping config")
     _device_arg(cg)
     cg.set_defaults(fn=cmd_cloud_gate)
+
+    st = sub.add_parser("stats", help="dataset stats (get_data_min_max)")
+    st.add_argument("--npz", required=True)
+    st.add_argument("--key", default="Y")
+    st.add_argument("--out-dir", default=None,
+                    help="write the nonzero histogram here (matplotlib)")
+    st.set_defaults(fn=cmd_stats)
+
+    ip = sub.add_parser("inspect", help="pkl/nc artifact browser "
+                        "(read_pkl.py / read_nc.py)")
+    ip.add_argument("path", help=".pkl or .nc file to summarize")
+    ip.set_defaults(fn=cmd_inspect)
+
+    cc = sub.add_parser("convert-checkpoint",
+                        help="import a reference torch .pt checkpoint (or "
+                             "export one of ours back with --to-torch, or "
+                             "quantize one with --quantize)")
+    cc.add_argument("--torch-ckpt", default=None,
+                    help="reference .pt to import")
+    cc.add_argument("--out-dir", default="checkpoints",
+                    help="where --torch-ckpt writes <type>_converted.pt")
+    cc.add_argument("--model-type", choices=["custom", "resnet18"],
+                    default="custom",
+                    help="fallback when the .pt has no embedded config")
+    cc.add_argument("--checkpoint", default=None,
+                    help="a .pt checkpoint of this package to export (with "
+                         "--to-torch) or quantize (with --quantize)")
+    cc.add_argument("--quantize", default=None, metavar="OUT.pt",
+                    help="write an int8-quantized copy of --checkpoint "
+                         "(int8 conv weights; evaluate, rollout and serve "
+                         "load it as int8)")
+    cc.add_argument("--to-torch", default=None, metavar="OUT.pt",
+                    help="export --checkpoint to the reference's torch "
+                         "checkpoint format")
+    cc.set_defaults(fn=cmd_convert_checkpoint)
+
+    dr = sub.add_parser("doctor",
+                        help="environment self-check (nvcc, the kernel "
+                             "builds, the native host kernels, a bounded "
+                             "device probe)")
+    dr.add_argument("--device-timeout", type=int, default=300,
+                    help="seconds before the device probe is declared "
+                         "unreachable")
+    _device_arg(dr)
+    dr.set_defaults(fn=cmd_doctor)
     return p
 
 

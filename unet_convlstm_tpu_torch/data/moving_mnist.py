@@ -1,4 +1,4 @@
-"""Moving-MNIST with velocity, numpy only (counterpart of
+"""Moving-MNIST with velocity, on the host (counterpart of
 unet_convlstm_tpu/data/moving_mnist.py; this package's own copy).
 
 * ``data[N, T, 2, H, W]`` float32. Channel 0 is the digit intensity in
@@ -14,6 +14,10 @@ unet_convlstm_tpu/data/moving_mnist.py; this package's own copy).
   ``randint(0, H-28+1, size=2)`` (x then y), ``randint(-5, 6, size=2)``
   (vx then vy). At a given seed and digit bank the output is byte-identical
   to the JAX package's generator.
+
+Each paste runs natively (``paste_digit``: ``paste_digit_f32`` of
+native/hostio.cpp, as in the JAX generator); ``paste_digit_plain`` is its
+numpy version and reference.
 
 ``load_mnist_digits`` finds an on-disk MNIST copy when there is one;
 ``synthetic_digit_bank`` is a deterministic glyph-based stand-in with the
@@ -116,6 +120,38 @@ def _simulate_trajectory(x0: int, y0: int, vx0: int, vy0: int, seq_len: int,
     return xs, ys, vxs
 
 
+def paste_digit_plain(frame: np.ndarray, vel: np.ndarray,
+                      digit: np.ndarray, y: int, x: int, vx: float) -> None:
+    """One digit into one frame, in numpy: where the digit is > 0 it
+    overwrites ``frame`` (a later digit wins) and ``vx`` adds into
+    ``vel``. The native paste's reference."""
+    mask = digit > 0
+    win_s = frame[y:y + 28, x:x + 28]
+    win_v = vel[y:y + 28, x:x + 28]
+    win_s[mask] = digit[mask]
+    win_v[mask] += vx
+
+
+def paste_digit(frame: np.ndarray, vel: np.ndarray, digit: np.ndarray,
+                y: int, x: int, vx: float) -> None:
+    """``paste_digit_plain`` in one native pass (``paste_digit_f32`` of
+    native/hostio.cpp): frame and vel C-contiguous float32 [S, S], digit
+    C-contiguous float32 [28, 28], the window inside the frame."""
+    from ..native.build import load_hostio
+
+    S = frame.shape[-1]
+    for a, shape in ((frame, (S, S)), (vel, (S, S)), (digit, (28, 28))):
+        if (a.shape != shape or a.dtype != np.float32
+                or not a.flags["C_CONTIGUOUS"]):
+            raise ValueError(f"paste_digit: expected C-contiguous float32 "
+                             f"{shape}, got {a.dtype} {a.shape}")
+    if not (0 <= y <= S - 28 and 0 <= x <= S - 28):
+        raise ValueError(f"paste_digit: window ({y}, {x}) outside the "
+                         f"{S}x{S} frame")
+    load_hostio().paste_digit_f32(frame.ctypes.data, vel.ctypes.data,
+                                  digit.ctypes.data, S, y, x, vx)
+
+
 def generate_moving_mnist(seq_len: int = 10, num_samples: int = 1000,
                           image_size: int = 64, num_digits: int = 2,
                           digits: Optional[np.ndarray] = None,
@@ -147,16 +183,12 @@ def generate_moving_mnist(seq_len: int = 10, num_samples: int = 1000,
 
             digit_norm = np.ascontiguousarray(
                 digit.astype(np.float32) / 255.0)
-            mask = digit_norm > 0
-            vals = digit_norm[mask]
 
             xs, ys, vxs = _simulate_trajectory(
                 int(x0), int(y0), int(vx0), int(vy0), seq_len, H)
             for t in range(seq_len):
-                win_s = seq[t, ys[t]:ys[t] + 28, xs[t]:xs[t] + 28]
-                win_v = vel[t, ys[t]:ys[t] + 28, xs[t]:xs[t] + 28]
-                win_s[mask] = vals      # later digit overwrites
-                win_v[mask] += vxs[t]   # velocities accumulate
+                paste_digit(seq[t], vel[t], digit_norm, int(ys[t]),
+                            int(xs[t]), float(vxs[t]))
         data[i, :, 0] = seq
         data[i, :, 1] = vel
     return data

@@ -8,6 +8,9 @@ unet_convlstm_tpu/data/pipeline.py).
   current step runs: pinned host buffers, copies on a side stream, and an
   event the consumer's stream waits on, so the host gather of batch k+1
   overlaps the device work of batch k.
+* ``make_grain_loader`` is the JAX package's grain loader on PyTorch's
+  ``DataLoader``: the same batches, gathered in worker processes when
+  asked; its shuffled order is its own.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Iterator, Tuple
 
 import numpy as np
 import torch
+import torch.utils.data
 
 from ..core.dtypes import resolve_device
 
@@ -114,10 +118,77 @@ def prefetch_to_device(iterator, size: int = 2, device=None):
             queue.append(put(batch))
 
 
-def make_grain_loader(*args, **kwargs):
-    """The grain-backed multi-worker loader of the JAX package: not ported
-    (grain is not a dependency of the port; the loop uses
-    ``SequenceLoader``)."""
-    raise NotImplementedError(
-        "make_grain_loader is not ported to unet_convlstm_tpu_torch yet "
-        "(ROADMAP.md, queue A item 9: the rest of the surface)")
+class _LoaderSource(torch.utils.data.Dataset):
+    """One raw NHWC (x, y) sample a position of ``indices`` (the JAX
+    package's ``_GrainSource``). Worker processes receive it pickled, and
+    pickling ships the npz path, the stats manifest and the indices, never
+    the X/Y arrays: each worker reopens the npz memory-mapped."""
+
+    def __init__(self, dataset, indices: np.ndarray):
+        self.dataset = dataset
+        self.indices = np.asarray(indices)
+
+    def __getstate__(self):
+        return {"npz_path": self.dataset.npz_path,
+                "stats": self.dataset.stats.to_dict(),
+                "indices": self.indices}
+
+    def __setstate__(self, st):
+        from ..ops.normalize import NormStats
+        from .npz_dataset import NPZSequenceDataset
+
+        self.indices = st["indices"]
+        self.dataset = NPZSequenceDataset(
+            st["npz_path"], stats=NormStats.from_dict(st["stats"]),
+            mmap=True)
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, i: int):
+        x, y = self.dataset.get_batch_raw(self.indices[i:i + 1])
+        return x[0], y[0]
+
+
+class _EpochSampler(torch.utils.data.Sampler):
+    """Positions 0..n-1 for each of ``num_epochs`` epochs, one stream
+    (batches run on across an epoch's end, as grain's do); shuffled per
+    epoch by a ``torch.Generator`` seeded with ``seed + epoch``."""
+
+    def __init__(self, n: int, shuffle: bool, seed: int, num_epochs: int):
+        self.n, self.shuffle = n, shuffle
+        self.seed, self.num_epochs = seed, num_epochs
+
+    def __len__(self) -> int:
+        return self.n * self.num_epochs
+
+    def __iter__(self):
+        for epoch in range(self.num_epochs):
+            if self.shuffle:
+                g = torch.Generator().manual_seed(self.seed + epoch)
+                yield from torch.randperm(self.n, generator=g).tolist()
+            else:
+                yield from range(self.n)
+
+
+def _stack(samples):
+    xs, ys = zip(*samples)
+    return np.stack(xs), np.stack(ys)
+
+
+def make_grain_loader(dataset, indices: np.ndarray, batch_size: int,
+                      shuffle: bool = True, seed: int = 0,
+                      worker_count: int = 0, num_epochs: int = 1):
+    """The JAX package's grain-backed loader, on ``torch.utils.data.
+    DataLoader``: yields the same raw NHWC (x, y) numpy batches as
+    ``SequenceLoader`` over ``num_epochs`` passes of ``indices``, the last
+    batch short (no remainder dropped). ``worker_count`` > 0 gathers the
+    samples in that many spawned worker processes; 0 stays in-process.
+    The shuffled order is this sampler's, not grain's."""
+    source = _LoaderSource(dataset, indices)
+    loader = torch.utils.data.DataLoader(
+        source, batch_size=batch_size,
+        sampler=_EpochSampler(len(source), shuffle, seed, num_epochs),
+        drop_last=False, num_workers=worker_count, collate_fn=_stack,
+        multiprocessing_context="spawn" if worker_count > 0 else None)
+    return iter(loader)

@@ -27,3 +27,9 @@ sequences.
 
 ``train/cloud_gate.py`` drives the chain end to end (``cloud-gate``).
 """
+
+from .microphysics import process_cloud_vars  # noqa: F401
+from .overpass import OverpassView, read_overpass_csv  # noqa: F401
+from .raycast import (VolumeGrid, first_hit_maps, make_rays,  # noqa: F401
+                      z_slice_maps)
+from .vol_format import read_vol, write_vol  # noqa: F401

@@ -125,6 +125,26 @@ def build_model(cfg_dict: Dict[str, Any]
     return MODEL_REGISTRY[model_type](cfg_dict)
 
 
+def model_from_checkpoint(init: Callable, model_state: Dict[str, Any],
+                          meta: Dict[str, Any], device) -> nn.Module:
+    """The model ``init`` builds, holding a checkpoint's ``model_state``,
+    on ``device`` in eval mode. A checkpoint with ``int8: true`` in its
+    metadata (``convert-checkpoint --quantize``) loads into
+    ``quantize_model`` of the architecture, so its convs run int8."""
+    with torch.device("meta"):
+        model = init()
+    if meta.get("int8"):
+        from ..ops.quant import load_quantized_state_dict, quantize_model
+
+        # the strict load fills every entry of the empty model
+        model = quantize_model(model).to_empty(device=device)
+        load_quantized_state_dict(model, model_state)
+    else:
+        model.load_state_dict(model_state, strict=True, assign=True)
+        model = model.to(device)
+    return model.eval()
+
+
 def _leaf(stats: Dict[str, Any], path: Tuple[str, ...]):
     for key in path:
         stats = stats[key]

@@ -22,7 +22,6 @@ import torch
 from torch import nn
 
 from ..core.dtypes import DEFAULT_POLICY, Policy
-from ..models.layout import to_batch_major, to_time_major
 from .conv import Conv2d, conv2d
 from .kernels.convlstm_fused import fused_gate_update
 
@@ -115,6 +114,9 @@ def convlstm(module: ConvLSTM, x_seq: torch.Tensor,
     x_seq [T, B, H, W, Cin] → (out_seq [T, B, H, W, hidden], final states).
     ``state`` carries one (h, c) per layer across calls (streaming); it is
     coerced to h in the compute dtype and c in f32."""
+    # imported here: the models package imports this module
+    from ..models.layout import to_batch_major, to_time_major
+
     T, B, H, W, _ = x_seq.shape
     # from the gate conv's weight, float or int8: [4*hidden, in+hidden, k, k]
     hidden = module.layers[0].conv.weight.shape[0] // 4

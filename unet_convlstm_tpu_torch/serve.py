@@ -28,7 +28,9 @@ Device work is serialized with a lock (one card, many HTTP threads).
 ``int8=True`` serves the post-training int8 model (``ops/quant.py``): every
 conv int8 on the card's int8 kernel (K8) with dynamic activation scales, or
 static ones calibrated on ``int8_calib_frames`` (raw [B, T, H, W, C] frame
-blocks, normalized with the checkpoint's manifest before calibrating).
+blocks, normalized with the checkpoint's manifest before calibrating). A
+checkpoint written by ``convert-checkpoint --quantize`` serves int8 with no
+flag.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from .core.dtypes import DEFAULT_POLICY, resolve_device
-from .models.registry import build_model
+from .models.registry import build_model, model_from_checkpoint
 from .ops.normalize import NormStats, denormalize_y, normalize_x
 from .ops.quant import calibrate_tree, quantize_model
 from .train.checkpoint import restore_checkpoint
@@ -78,19 +80,20 @@ class StreamingPredictor:
         self.model_cfg = dict(model_cfg)
         self.cfg, init, self._apply_fn, self._init_state = build_model(
             model_cfg)
-        with torch.device("meta"):
-            model = init()
-        model.load_state_dict(model_state, strict=True, assign=True)
-        self.model = model.to(self.device).eval()
+        self.model = model_from_checkpoint(init, model_state, meta,
+                                           self.device)
         if "norm_stats" not in meta:
             raise ValueError(
                 "checkpoint has no normalization manifest (norm_stats): it "
                 "cannot map raw frames to model inputs; re-save it with one")
         self.norm_stats = NormStats.from_dict(meta["norm_stats"])
-        self.int8 = int8
+        # an int8 checkpoint (convert-checkpoint --quantize) serves int8
+        # with no flag
+        self.int8 = int8 or bool(meta.get("int8"))
         self.int8_calib_blocks = 0     # calibrated static scales when > 0
-        if int8:
-            self.model = quantize_model(self.model)
+        if self.int8:
+            if not meta.get("int8"):
+                self.model = quantize_model(self.model)
             if int8_calib_frames is not None:
                 # materialized before anything takes its length: a
                 # generator is consumed once

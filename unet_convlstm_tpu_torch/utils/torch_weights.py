@@ -26,6 +26,14 @@ in the same layouts, ``w_s``/``wt_s`` the ``w_s`` buffer and ``x_s`` the
 ``x_s`` buffer of the port's ``QuantConv2d``/``QuantConvTranspose2d``;
 ``ops.quant.load_quantized_state_dict`` loads the result into a model from
 ``quantize_model``.
+
+Checkpoints of the reference's torch code (``{model_state, config,
+val_loss, epoch}``, reference main.py:307-323), the CLI's
+``convert-checkpoint``: ``read_reference_checkpoint`` loads one safely,
+``reference_model_config`` takes the architecture from its weights where
+its config says otherwise or nothing (the JAX CLI's rule), and
+``to_reference_checkpoint`` writes a checkpoint of this package back in
+that format.
 """
 
 from __future__ import annotations
@@ -244,3 +252,99 @@ def find_resnet18_weights(root: Optional[str] = None) -> Optional[str]:
             if hits:
                 return hits[0]
     return None
+
+
+# ---------------------------------------------------------------------------
+# The reference's checkpoints (convert-checkpoint)
+# ---------------------------------------------------------------------------
+
+# the model-config keys the reference .pt carries, per family
+REFERENCE_CONFIG_KEYS = {
+    "custom": ("base_ch", "lstm_layers", "use_skip_lstm", "use_attention"),
+    "resnet18": ("lstm_layers", "freeze_encoder", "in_channels")}
+
+
+def read_reference_checkpoint(path: str) -> Dict[str, Any]:
+    """A reference ``.pt``, loaded with ``weights_only=True``: it holds
+    tensors and plain containers. Where that load fails, a warning comes
+    before the full unpickling, which runs whatever code the file holds:
+    only for files one trusts."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:  # any refusal of the safe unpickler
+        print(f"WARNING: safe (weights_only) load failed ({e}); falling "
+              "back to full unpickling — only do this for checkpoints you "
+              "trust.")
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def custom_structure(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """TemporalUNetDualView's architecture read from its weights: skip
+    LSTMs, attention, LSTM depth, base width, input channels per satellite
+    (the first conv sees both satellites' stacked channels, reference
+    unet.py:134) and output channels (the 1x1 head, unet.py:159)."""
+    return {
+        "use_skip_lstm": "lstm_skip3.layers.0.conv.weight" in sd,
+        "use_attention": "attention.conv.weight" in sd,
+        "lstm_layers": sum(1 for k in sd if k.startswith("temporal.layers.")
+                           and k.endswith(".conv.weight")),
+        "base_ch": int(sd["inc.net.0.weight"].shape[0]),
+        "in_channels_per_sat": int(sd["inc.net.0.weight"].shape[1]) // 2,
+        "out_channels": int(sd["outc.conv.weight"].shape[0]),
+    }
+
+
+def reference_model_config(ckpt: Mapping[str, Any], model_type: str
+                           ) -> Dict[str, Any]:
+    """The model config of a reference checkpoint (or of a raw state dict,
+    with ``model_type`` as its family): its own config, where the custom
+    family's structural flags come from the weights, with a warning where
+    they contradict it (a raw state dict or a minimal config would
+    otherwise get the registry's defaults and fail to load). ``type`` is
+    set where the file's config lacks it."""
+    sd = ckpt.get("model_state", ckpt)
+    cfg = dict(ckpt.get("config", {"type": model_type}))
+    cfg.setdefault("type", model_type)
+    if cfg["type"] == "custom":
+        for k, v in custom_structure(sd).items():
+            if k in cfg and cfg[k] != v:
+                print(f"WARNING: checkpoint config says {k}={cfg[k]} but "
+                      f"the weights say {k}={v}; trusting the weights")
+            cfg[k] = v
+    elif cfg["type"] != "resnet18":
+        raise ValueError(f"unknown model type {cfg['type']!r}")
+    return cfg
+
+
+def to_reference_checkpoint(model_state: Mapping[str, torch.Tensor],
+                            meta: Mapping[str, Any]) -> Dict[str, Any]:
+    """A checkpoint of this package (``train.checkpoint.restore_checkpoint``
+    output) → the reference's ``{model_state, config, val_loss, epoch}``,
+    the config cut to the keys the reference reads. The ResNet18 family
+    gains the reference's ``lstm_skips.0`` (the LSTM over the identity
+    feature, whose output its decoder drops) zero-filled, as the JAX
+    package's ``export_pretrained_temporal_unet_checkpoint`` writes it."""
+    if meta.get("int8"):
+        raise ValueError("an int8 checkpoint has no float weights for the "
+                         "reference; export the float checkpoint")
+    cfg = meta.get("config", {})
+    model_cfg = cfg.get("model", cfg)
+    model_type = model_cfg.get("type", "custom")
+    if model_type not in REFERENCE_CONFIG_KEYS:
+        raise ValueError(f"unknown model type {model_type!r}")
+    sd = {k: v.detach().cpu() for k, v in model_state.items()}
+    if model_type == "resnet18":
+        cin = int(sd["encoder.conv1.weight"].shape[1])
+        layers = sum(1 for k in sd if k.startswith("lstm_skips.1.layers.")
+                     and k.endswith(".conv.weight"))
+        for layer in range(layers):
+            pre = f"lstm_skips.0.layers.{layer}.conv"
+            sd[f"{pre}.weight"] = torch.zeros(4 * cin, 2 * cin, 3, 3)
+            sd[f"{pre}.bias"] = torch.zeros(4 * cin)
+    return {"model_state": sd,
+            "config": {"type": model_type,
+                       **{k: model_cfg[k] for k in
+                          REFERENCE_CONFIG_KEYS[model_type]
+                          if k in model_cfg}},
+            "val_loss": meta.get("val_loss"),
+            "epoch": meta.get("epoch", 0)}
