@@ -121,6 +121,34 @@ non-zero:
               .nc; ``doctor`` exit 0 with every line PASS; the viz modules'
               numbers against numpy and each drawing drawn or said not
               drawn. Phase 9 counts its gathers by route (all native).
+16. repro   — a training run reproducible on the card: K2 20 times at each
+              shape of the training step from the same inputs (y, the sums
+              and the sums of squares bit-identical: K2 adds its per-channel
+              sums in a fixed order); three training steps of the benchmark's
+              configuration (B=64, T=10, 64x64, base_ch 32, bf16) twice from
+              one seed (losses, parameters and BatchNorm statistics
+              bit-identical); ``cloud-gate --production`` a second time, its
+              best val MAE bit-equal to phase 14's (the spread of three
+              runs from before the fix printed beside it). The training
+              paths (phase 5's step, ``fit`` and the gate) run under
+              ``core.determinism.deterministic``.
+17. dp      — data parallelism on the one card: two gloo ranks spawned on
+              cuda:0 (gloo takes CUDA tensors for the all-reduce and the
+              all-gather the port calls) run three steps of the benchmark's
+              configuration, 32 rows a rank, against one process at B=64,
+              each step from the same state on both sides, in bf16 (the
+              main path) and in f32: loss, metric sums, parameters and
+              BatchNorm statistics within bounds, and per-rank BatchNorm
+              statistics (a control) beyond them; ZeRO-1 against
+              replicated on the ranks (bit-equal); K1 forward, backward
+              and K2 launches
+              per rank per step exact; ``evaluate_model`` and
+              ``rollout_scan`` on the ranks against one process; whether
+              gloo itself takes CUDA tensors; an NCCL group of world size 1
+              running the same data-parallel step bit-equal to no group.
+              Multi-rank NCCL is not run (one card): unverified. The two
+              ranks' step times share one card and are no data-parallel
+              speed.
 
 Phase 2 also holds the gate update forward (K1) where its vector route does
 not go (C = 12, a gates view 2 bytes off a 16-byte boundary), with f32
@@ -159,6 +187,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import datetime
 import functools
 import csv
 import glob
@@ -178,6 +207,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from unet_convlstm_tpu_torch import benchmark
@@ -186,6 +216,8 @@ from unet_convlstm_tpu_torch.data import fast_gather, moving_mnist
 from unet_convlstm_tpu_torch.data.npz_dataset import NPZSequenceDataset
 from unet_convlstm_tpu_torch.data.pipeline import (SequenceLoader,
                                                   prefetch_to_device)
+from unet_convlstm_tpu_torch.core.determinism import (
+    deterministic, set_cublas_workspace_config)
 from unet_convlstm_tpu_torch.core.dtypes import (DEFAULT_POLICY, FP32_POLICY,
                                                  full_fp32)
 from unet_convlstm_tpu_torch.datagen import mc_reference
@@ -211,6 +243,7 @@ from unet_convlstm_tpu_torch.ops.normalize import (NormStats, compute_mask,
                                                    normalize_x, normalize_y)
 from unet_convlstm_tpu_torch.ops.quant import (calibrate_tree,
                                                quant_sites, quantize_model)
+from unet_convlstm_tpu_torch.parallel.mesh import make_mesh
 from unet_convlstm_tpu_torch.probes import bn_kernel_proto, probe_gather
 from unet_convlstm_tpu_torch.serve import StreamingPredictor, serve_http
 from unet_convlstm_tpu_torch.train import cloud_gate
@@ -222,6 +255,15 @@ from unet_convlstm_tpu_torch.train.optim import make_optimizer
 from unet_convlstm_tpu_torch.train.steps import make_train_step
 from unet_convlstm_tpu_torch.utils.torch_weights import (
     save_resnet18_encoder_pth)
+
+# the local process groups of phase 17 (a test-support module of the repo)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+from _torch_ranks import free_port, run_local_ranks, to_host  # noqa: E402
+
+# cuBLAS reads its deterministic workspace setting at its first handle: set
+# before CUDA starts (the training paths run deterministic)
+set_cublas_workspace_config()
 
 SEED = 0
 B, T, HW, BASE = 4, 4, 128, 64           # the serving path's geometry
@@ -302,11 +344,12 @@ K1_BWD_TOL = ("dc, and dgates in f32: 1e-5 * (1 + |x|) (f32 exp/tanh of "
               "boundary)")
 K2_TOL = ("y: 2^-7 * |y| + 1e-3 * max|y| (the f32 sums run in another order, "
           "so a bf16 rounding may flip by one ulp); sum, sumsq: 1e-3 of the "
-          "sum of |y| resp. of sumsq (f32 atomics in no fixed order)")
+          "sum of |y| resp. of sumsq (f32 sums in another order than the "
+          "plain version's)")
 K2_F32_TOL = "y: 1e-4 * max|y| (f32 FMA in another order)"
-K2_RERUN_TOL = ("wgmma route: y bit-equal in a second run (K is reduced in "
-                "a fixed order, split K included); NaNs where the plain "
-                "version has them")
+K2_RERUN_TOL = ("y, sum and sumsq bit-equal in a second run on both routes "
+                "(K and the per-channel sums are reduced in fixed orders, "
+                "split K included); NaNs where the plain version has them")
 MC_K_TOL = ("u_acc bit-equal; t 1e-6 relative (log1p, a few ulps); new_d "
             "within 1e-5 per component in all but 0.01% of lanes and 1e-3 "
             "in all (an ulp of cos theta near +-1 moves sin theta by up to "
@@ -718,13 +761,21 @@ def _k2_check_line(gen, n, side, cin, cout, pro, dtype=torch.bfloat16,
             "dtype": str(dtype).split(".")[-1], "route": route, "plan": plan,
             "y_abs_err": err, "y_scale": scale, "sum_rel_err": s_rel,
             "sumsq_rel_err": q_rel}
-    if route == "wgmma":
-        y1 = doubleconv_fused.fused_conv3x3(*args)[0]
-        y2 = doubleconv_fused.fused_conv3x3(*args)[0]
-        line["bit_equal_rerun"] = torch.equal(y1, y2)
-        ok = ok and line["bit_equal_rerun"]
+    first = doubleconv_fused.fused_conv3x3(*args)
+    again = doubleconv_fused.fused_conv3x3(*args)
+    line["bit_equal_rerun"] = all(_bitequal_nan(a, b)
+                                  for a, b in zip(first, again))
+    ok = ok and line["bit_equal_rerun"]
     line["ok"] = ok
     return line
+
+
+def _bitequal_nan(a, b) -> bool:
+    """The same bits, NaNs included."""
+    return torch.equal(a.view(torch.int16 if a.element_size() == 2
+                              else torch.int32),
+                       b.view(torch.int16 if b.element_size() == 2
+                              else torch.int32))
 
 
 def _k2_time(line, gen, n, side, cin, cout, pro):
@@ -1984,6 +2035,13 @@ def _sums_err(a, b) -> float:
 
 
 def phase_train(tr: _Train):
+    """The training step's phase, under the training paths' deterministic
+    settings (core.determinism)."""
+    with deterministic(DEV):
+        return _phase_train(tr)
+
+
+def _phase_train(tr: _Train):
     dev_name = torch.cuda.get_device_name(0)
     bf16, f32 = DEFAULT_POLICY, FP32_POLICY
     # -- the main path: bf16, both kernel flags on, launch counts read ----
@@ -3595,7 +3653,7 @@ def gate_production(workdir: str):
     emit(line)
     if not line["ok"]:
         raise AssertionError("the production cloud gate failed")
-    return counts
+    return counts, res
 
 
 def gate_mc_chain(workdir: str):
@@ -3651,12 +3709,12 @@ def gate_mc_chain(workdir: str):
 def phase_datachain(workdir: str):
     """Stage A's microphysics, stage C at production geometry, the
     production gate, the reduced MC chain. Returns the gate's launch
-    counts."""
+    counts and its result."""
     check_microphysics()
     check_stage_c(workdir)
-    counts = gate_production(workdir)
+    counts, gate = gate_production(workdir)
     gate_mc_chain(workdir)
-    return counts
+    return counts, gate
 
 
 # ---------------------------------------------------------------------------
@@ -4111,6 +4169,400 @@ def phase_surface(workdir: str, npz: str, chaindir: str):
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# 16. a reproducible training run on the card
+# ---------------------------------------------------------------------------
+
+REPRO_LAUNCHES = 20       # K2 launches a training shape, one set of inputs
+# best val MAE of three runs of `cloud-gate --production` on an H100 before
+# K2's sums were fixed-order and the training paths deterministic (PERF.md
+# section 6, ROADMAP.md section C)
+GATE_EARLIER_MAE = (0.2285, 0.2520, 0.1938)
+
+
+def repro_k2(gen):
+    """K2 REPRO_LAUNCHES times at each shape of the training step (bf16,
+    B*T = 640) from the same inputs: y, sum and sumsq bit-identical."""
+    lines = []
+    for side, cin, cout, pro, _ in K2_TRAIN_CONVS:
+        args = _k2_inputs(gen, TB * TT, side, cin, cout, pro, torch.bfloat16)
+        ref = doubleconv_fused.fused_conv3x3(*args)
+        same = [all(_bitequal_nan(a, b) for a, b in zip(
+            ref, doubleconv_fused.fused_conv3x3(*args)))
+            for _ in range(REPRO_LAUNCHES - 1)]
+        torch.cuda.synchronize()
+        route, plan = _k2_plan(TB * TT, side, cin, cout, torch.bfloat16)
+        line = {"phase": "repro", "check": "conv3x3_fused",
+                "shape": [TB * TT, side, side, cin, cout], "prologue": pro,
+                "route": route, "plan": plan, "launches": REPRO_LAUNCHES,
+                "bit_identical": all(same)}
+        emit(line)
+        lines.append(line)
+    if not all(ln["bit_identical"] for ln in lines):
+        raise AssertionError("K2's outputs differ from launch to launch")
+    return lines
+
+
+def _train_state(model, opt):
+    return (copy.deepcopy(model.state_dict()),
+            copy.deepcopy(opt.state_dict()["adamw"]["state"]))
+
+
+def repro_steps(tr: _Train):
+    """Three training steps of the benchmark's configuration (bf16, both
+    kernels) twice from the seeded init: losses, parameters, BatchNorm
+    statistics and AdamW's moments bit-identical."""
+    runs = []
+    with deterministic(DEV):
+        for _ in range(2):
+            opt = tr.fresh()
+            step = tr.step(DEFAULT_POLICY, True)
+            losses = [step(tr.model, opt, tr.x, tr.y)[0].item()
+                      for _ in range(TRAIN_STEPS)]
+            runs.append((losses, *_train_state(tr.model, opt)))
+    (la, ma, oa), (lb, mb, ob) = runs
+    line = {"phase": "repro", "check": "train_steps", "B": TB, "T": TT,
+            "H": THW, "base_ch": TBASE, "dtype": "bfloat16",
+            "steps": TRAIN_STEPS, "losses": [la, lb],
+            "losses_equal": la == lb,
+            "params_and_bn_equal": all(torch.equal(ma[k], mb[k])
+                                       for k in ma),
+            "moments_equal": all(torch.equal(oa[i][k], ob[i][k])
+                                 for i in oa for k in oa[i])}
+    line["ok"] = (line["losses_equal"] and line["params_and_bn_equal"]
+                  and line["moments_equal"])
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError("two runs of the training steps differ")
+    return line
+
+
+def phase_repro(gen, gate: dict):
+    """K2's sums, the training step and the production gate, each run
+    twice; ``gate`` is phase 14's gate result."""
+    repro_k2(gen)
+    torch.cuda.empty_cache()
+    repro_steps(_Train())
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        _, again = gate_production(workdir)
+    maes = [r["val_mae"] for r in gate["history"] if "val_mae" in r]
+    maes2 = [r["val_mae"] for r in again["history"] if "val_mae" in r]
+    line = {"phase": "repro", "check": "cloud_gate",
+            "best_val_mae": [gate["best_val_mae"], again["best_val_mae"]],
+            "best_equal": gate["best_val_mae"] == again["best_val_mae"],
+            "val_mae_per_epoch_equal": maes == maes2,
+            "before_fix_best_val_mae": list(GATE_EARLIER_MAE),
+            "before_fix_spread": (max(GATE_EARLIER_MAE)
+                                  - min(GATE_EARLIER_MAE))}
+    line["ok"] = line["best_equal"] and line["val_mae_per_epoch_equal"]
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError("two production gates gave other val MAEs")
+    return line
+
+
+# ---------------------------------------------------------------------------
+# 17. data parallelism on the one card
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_EVAL_N, DP_EVAL_B, DP_ROLL_B = 16, 8, 4   # sequences; eval, rollout batch
+# The two ranks against one process, each step from the same state on both
+# sides (phase 5's measures). The ranks' per-channel sums and gradients are
+# all-reduced, so they add in another order than one pass does. f32 (TF32
+# off): TRAIN_F32_TOL. bf16 (the benchmark's configuration, K2's wgmma
+# route): an activation rounded after those sums may land one bf16 ulp
+# apart, and AdamW's update is about +-lr whatever |g| is, so an element
+# whose gradient lies at that noise takes a noise-made sign. DP_BF16_TOL
+# is about three times the largest of the three steps' readings of two
+# ranks on an H100 (the loss 1.6e-5, the sums 7.7e-5, 3.7% of the elements
+# beyond lr/2 and 0.065 lr RMS at the first step, BN 1.04e-4; the same
+# bits every run). A control, each rank's BatchNorm statistics from its own
+# rows (the mesh withheld from the model, the loss and gradients still
+# summed), must fail at least one of them: it read BN 2.7e-3 to 5.1e-3 and
+# the sums 1.1e-3 to 5.4e-3.
+DP_BF16_TOL = dict(loss=1e-4, sums=3e-4, params_flipped=0.1,
+                   params_rms_lr=0.2, bn=3e-4)
+DP_TOL = dict(eval=1e-5, rollout=1e-5)
+DP_TOL_WHY = ("two ranks against one process, each step from the same "
+              "state, sums in another order: f32 (TF32 off) as phase 5's "
+              f"train_f32; bf16 (the main path) the loss "
+              f"{DP_BF16_TOL['loss']:g} and metric sums "
+              f"{DP_BF16_TOL['sums']:g} relative, params at most "
+              f"{DP_BF16_TOL['params_flipped']:.0%} of elements off by > "
+              f"lr/2 and the rest {DP_BF16_TOL['params_rms_lr']:g} lr RMS, "
+              f"BN stats {DP_BF16_TOL['bn']:g} of max(1, max|stat|), and "
+              "per-rank BN statistics (the control) beyond at least one of "
+              "these; ZeRO-1 against replicated and the NCCL group of one "
+              "against no group bit-equal; evaluate_model and rollout_scan "
+              "in f32 (TF32 off) 1e-5 relative, histograms equal")
+
+
+def _gloo_cuda_probe(mesh):
+    """Does gloo take CUDA tensors for each collective the port calls?
+    (The data-parallel code passes them to it as they are.)"""
+    out = {}
+    for name, fn in (
+            ("all_reduce", lambda t: dist.all_reduce(t, group=mesh.group)),
+            ("all_gather", lambda t: dist.all_gather(
+                [torch.empty_like(t) for _ in range(mesh.data)], t,
+                group=mesh.group))):
+        try:
+            fn(torch.ones(8, device=DEV))
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:   # recorded; the phase then fails below
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def _dp_steps(tr, mesh, x, y, zero1=False):
+    """TRAIN_STEPS bf16 steps from the init, this process's rows, launches
+    and wall times read around them."""
+    with deterministic(DEV):
+        opt = make_optimizer(_fresh_named(tr), LR, mesh=mesh, zero1=zero1)
+        step = make_train_step(tr.flags(DEFAULT_POLICY, True), tr.norm,
+                               mesh=mesh)
+        torch.cuda.synchronize()
+        reset_launches()
+        losses, ms = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(tr.model, opt, x, y)[0].item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = path_counts()
+        state = _train_state(tr.model, opt)
+    return {"losses": losses, "ms": ms, "counts": counts,
+            "state": to_host(state[0]), "moments": to_host(state[1])}
+
+
+def _fresh_named(tr):
+    tr.model.load_state_dict(tr.init)
+    return tr.model.named_parameters()
+
+
+def _dp_eval(tr, mesh, npz):
+    """evaluate_model and rollout_scan in f32 (TF32 off) with this mesh."""
+    tr.model.load_state_dict(tr.init)
+    tr.model.eval()
+    apply = tr.flags(FP32_POLICY, True)
+    ds = NPZSequenceDataset(npz)
+    _, _, _, init_state = build_model(benchmark.MODEL_CFG)
+    with full_fp32():
+        rep = evaluate_model(apply, tr.model, ds, indices=np.arange(len(ds)),
+                             batch_size=DP_EVAL_B, use_mask=False, mesh=mesh)
+        x = normalize_x(tr.x[:DP_ROLL_B], tr.norm)
+        y, st = rollout_scan(apply, tr.model, x, init_state, mesh=mesh)
+    tr.model.train()
+    return {"report": rep.to_dict(), "y": to_host(y), "state": to_host(st)}
+
+
+def _without_mesh(apply, model, x, train, mesh=None):
+    """``apply`` with the mesh withheld: BatchNorm's statistics from this
+    rank's rows alone (the control of phase 17)."""
+    return apply(model, x, train=train)
+
+
+def _dp_against_one_each_step(tr, mesh, policy, per_rank_bn=False):
+    """TRAIN_STEPS steps on the ranks under ``policy`` (FP32_POLICY with
+    TF32 off); before each, rank 0 also takes the one-process step on the
+    whole batch from the same state and compares (phase 5's measures).
+    ``per_rank_bn``: the control. Returns rank 0's comparisons."""
+    rows = mesh.rows(TB)
+    apply = tr.flags(policy, True)
+    out = []
+    with deterministic(DEV), (full_fp32() if policy is FP32_POLICY
+                              else contextlib.nullcontext()):
+        opt = make_optimizer(_fresh_named(tr), LR, mesh=mesh)
+        dp = make_train_step(functools.partial(_without_mesh, apply)
+                             if per_rank_bn else apply, tr.norm, mesh=mesh)
+        one = make_train_step(apply, tr.norm)
+        for _ in range(TRAIN_STEPS):
+            before = _snapshot(tr.model, opt)
+            ld, sd = dp(tr.model, opt, tr.x[rows].contiguous(),
+                        tr.y[rows].contiguous())
+            after = _snapshot(tr.model, opt)
+            if mesh.rank == 0:
+                _restore(tr.model, opt, before)
+                lo, so = one(tr.model, opt, tr.x, tr.y)
+                ref = _snapshot(tr.model, opt)
+                flipped, rms = _params_diff(after[0], ref[0], tr.model)
+                out.append({"loss": [ld.item(), lo.item()],
+                            "loss_rel": abs(ld.item() / lo.item() - 1),
+                            "sums_err": _sums_err(sd, so),
+                            "params_flipped": flipped, "params_rms_lr": rms,
+                            "bn_err": _bn_err(after[0], ref[0])})
+                _restore(tr.model, opt, after)
+    return out
+
+
+def _within(steps, tol) -> bool:
+    """Every step's readings within ``tol`` (and as many steps as run)."""
+    return len(steps) == TRAIN_STEPS and all(
+        st["loss_rel"] <= tol["loss"] and st["sums_err"] <= tol["sums"]
+        and st["params_flipped"] <= tol["params_flipped"]
+        and st["params_rms_lr"] <= tol["params_rms_lr"]
+        and st["bn_err"] <= tol["bn"] for st in steps)
+
+
+def _dp_rank(mesh, npz):
+    """One gloo rank on the card: replicated and ZeRO-1 bf16 steps on its
+    rows of the benchmark's batch, the f32 and bf16 steps against one
+    process and the bf16 control, evaluation and rollout, gloo's own CUDA
+    support."""
+    torch.cuda.set_device(0)
+    tr = _Train()
+    rows = mesh.rows(TB)
+    x, y = tr.x[rows].contiguous(), tr.y[rows].contiguous()
+    return {"gloo_cuda": _gloo_cuda_probe(mesh),
+            "replicated": _dp_steps(tr, mesh, x, y),
+            "zero1": _dp_steps(tr, mesh, x, y, zero1=True),
+            "f32": _dp_against_one_each_step(tr, mesh, FP32_POLICY),
+            "bf16": _dp_against_one_each_step(tr, mesh, DEFAULT_POLICY),
+            "bf16_per_rank_bn": _dp_against_one_each_step(
+                tr, mesh, DEFAULT_POLICY, per_rank_bn=True),
+            "eval": _dp_eval(tr, mesh, npz)}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _np_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _dp_against_one(ranks, one, model):
+    """The ranks' free-running bf16 steps against one process's (reported,
+    not held: they part within a step or two, each step's difference
+    carried into the next): the losses, and the parameters after the three
+    steps in units of lr; and whether the ranks hold the same bits."""
+    got = ranks[0]["replicated"]
+    names = [n for n, _ in model.named_parameters()]
+    d = np.concatenate([((got["state"][n] - one["state"][n]) / LR).ravel()
+                        for n in names])
+    big = np.abs(d) > 0.5
+    loss_rel = [abs(a / b - 1) for a, b in zip(got["losses"],
+                                               one["losses"])]
+    return {"losses": got["losses"], "one_process_losses": one["losses"],
+            "loss_rel": loss_rel,
+            "bf16_params_flipped_after_3": float(big.mean()),
+            "bf16_params_rms_lr_after_3": float(np.sqrt((d[~big] ** 2)
+                                                        .mean())),
+            "ranks_agree": all(
+                r["replicated"]["losses"] == got["losses"]
+                and all(np.array_equal(r["replicated"]["state"][k], v)
+                        for k, v in got["state"].items())
+                for r in ranks)}
+
+
+def _states_equal(a, b) -> bool:
+    return (all(np.array_equal(a["state"][k], v)
+                for k, v in b["state"].items())
+            and all(np.array_equal(x, y) for x, y in zip(
+                _leaves(a["moments"]), _leaves(b["moments"])))
+            and a["losses"] == b["losses"])
+
+
+def phase_dp(workdir: str):
+    """Two gloo ranks on the card against one process; ZeRO-1; eval and
+    rollout; an NCCL group of one. Returns the ranks' launch counts per
+    step."""
+    npz = os.path.join(workdir, "dp.npz")
+    moving_mnist.save_moving_mnist_npz(npz, seq_len=TT,
+                                       num_samples=DP_EVAL_N,
+                                       image_size=THW, seed=SEED + 11,
+                                       as_xy=True)
+    t0 = time.perf_counter()
+    ranks = run_local_ranks(_dp_rank, DP_RANKS, (npz,), backend="gloo",
+                            timeout_s=600, group_timeout_s=300)
+    ranks_wall = time.perf_counter() - t0
+    tr = _Train()
+    one = _dp_steps(tr, None, tr.x, tr.y)
+    one_eval = _dp_eval(tr, None, npz)
+    # the same data-parallel step on an NCCL group of one rank: every
+    # collective runs, bit-equal to no group
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh1 = make_mesh(group=dist.group.WORLD)
+        nccl = _dp_steps(tr, mesh1, tr.x, tr.y)
+        nccl_z = _dp_steps(tr, mesh1, tr.x, tr.y, zero1=True)
+        nccl_backend = mesh1.backend
+    finally:
+        dist.destroy_process_group()
+    per_step = {k: v // TRAIN_STEPS for k, v in ranks[0]["replicated"]
+                ["counts"].items()}
+    expect = on_main_routes({"gate_update": K1_PER_STEP,
+                             "gate_update_bwd": K1_PER_STEP,
+                             "conv3x3_fused": K2_PER_STEP, **NO_LAUNCHES})
+    counts_ok = all(r[m]["counts"] == {k: v * TRAIN_STEPS
+                                       for k, v in expect.items()}
+                    for r in ranks for m in ("replicated", "zero1"))
+    cmp = _dp_against_one(ranks, one, tr.model)
+    tol = DP_TOL
+    f32, bf16 = ranks[0]["f32"], ranks[0]["bf16"]
+    control = ranks[0]["bf16_per_rank_bn"]
+    control_fails = (len(control) == TRAIN_STEPS
+                     and not _within(control, DP_BF16_TOL))
+    steps_ok = (cmp["ranks_agree"] and _within(f32, TRAIN_F32_TOL)
+                and _within(bf16, DP_BF16_TOL) and control_fails)
+    zero1_ok = all(_states_equal(r["zero1"], r["replicated"]) for r in ranks)
+    nccl_ok = (_states_equal(nccl, one) and _states_equal(nccl_z, one)
+               and nccl["counts"] == one["counts"])
+    ev, ev1 = ranks[0]["eval"], one_eval
+    m, s1 = ev["report"], ev1["report"]
+    eval_err = max(_np_rel(m[k], s1[k]) for k in ("mae", "rmse",
+                                                  "mae_over_time"))
+    eval_ok = (eval_err <= tol["eval"] and m["n_pixels"] == s1["n_pixels"]
+               and all(np.array_equal(m[k], s1[k])
+                       for k in ("gt_hist", "pred_hist", "err_hist")))
+    roll_err = max([_np_rel(ev["y"], ev1["y"])] + [
+        _np_rel(a, b) for a, b in zip(_leaves(ev["state"]),
+                                      _leaves(ev1["state"]))])
+    roll_ok = roll_err <= tol["rollout"]
+    line = {"phase": "dp", "ranks": DP_RANKS, "backend": "gloo",
+            "device": "cuda:0 shared", "B": TB,
+            "rows_per_rank": TB // DP_RANKS,
+            "T": TT, "H": THW, "base_ch": TBASE, "dtype": "bfloat16",
+            "steps": TRAIN_STEPS, "gloo_cuda": ranks[0]["gloo_cuda"],
+            "launches_per_rank_per_step": per_step, "expected": expect,
+            "counts_ok": counts_ok, **cmp, "f32_steps": f32,
+            "bf16_steps": bf16, "bf16_tol": DP_BF16_TOL,
+            "control_per_rank_bn_steps": control,
+            "control_fails_bf16_tol": control_fails, "steps_ok": steps_ok,
+            "zero1_bit_equal_replicated": zero1_ok,
+            "nccl_world_1": {"backend": nccl_backend,
+                             "bit_equal_no_group": nccl_ok,
+                             "launches": nccl["counts"]},
+            "nccl_multi_rank": "unverified: one card, and NCCL takes one "
+                               "rank a device",
+            "eval_rel_err": eval_err, "eval_ok": eval_ok,
+            "rollout_rel_err": roll_err, "rollout_ok": roll_ok,
+            "shared_card_step_ms": {
+                "rank0": ranks[0]["replicated"]["ms"],
+                "rank1": ranks[1]["replicated"]["ms"],
+                "one_process": one["ms"],
+                "note": "two processes sharing one card: no data-parallel "
+                        "speed"},
+            "ranks_wall_s": ranks_wall, "tol": DP_TOL_WHY}
+    line["ok"] = (counts_ok and steps_ok and zero1_ok and nccl_ok and eval_ok
+                  and roll_ok and all(v == "ok" for v in
+                                      ranks[0]["gloo_cuda"].values()))
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError("data parallelism on the card failed")
+    return per_step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4163,7 +4615,11 @@ def main() -> int:
                    "with K8 equal to it with K8's plain version (1e-6), "
                    f"calibrated at most {INT8_EVAL_SANITY}x the bf16 MAE "
                    "(the ratio reported against BASELINE.md's 10%)"),
-          "surface": SURFACE_TOL})
+          "surface": SURFACE_TOL,
+          "repro": ("K2's y, sum and sumsq over 20 launches, the training "
+                    "steps run twice, the production gate run twice: "
+                    "bit-equal"),
+          "dp": DP_TOL_WHY})
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     k1 = check_k1(gen, K1_LEVELS, B, "request")
     k1_edges = check_k1_edges(gen)
@@ -4204,9 +4660,13 @@ def main() -> int:
                                  os.path.join(workdir, "resnet18.pt"), smi)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as chaindir:
-            chain_counts = phase_datachain(chaindir)
+            chain_counts, gate = phase_datachain(chaindir)
             torch.cuda.empty_cache()
             surface_counts = phase_surface(workdir, npz, chaindir)
+        torch.cuda.empty_cache()
+        phase_repro(gen, gate)
+        torch.cuda.empty_cache()
+        dp_counts = phase_dp(workdir)
 
     per = f"one request: B={B}, T={T}, {HW}x{HW}, base_ch {BASE}, bf16"
     per_step = (f"one training step: B={TB}, T={TT}, {THW}x{THW}, base_ch "
@@ -4286,6 +4746,7 @@ def main() -> int:
     for k in kernels[:3]:
         k["fit_launches"] = fit_counts[k["name"]]
         k["datachain_launches"] = chain_counts[k["name"]]
+        k["dp_launches_per_rank_per_step"] = dp_counts[k["name"]]
     kernels[3]["datachain_launches"] = chain_counts["mc_sample_flights"]
     kernels[0]["resnet"] = resnet["gate_update"]
     kernels[2]["resnet"] = resnet["gate_update_bwd"]

@@ -11,7 +11,7 @@ import pytest
 from unet_convlstm_tpu.train.config import TrainConfig as JCfg
 from unet_convlstm_tpu.train.guard import TrainingGuard as JGuard
 from unet_convlstm_tpu_torch.train.config import TrainConfig as TCfg
-from unet_convlstm_tpu_torch.train.config import check_single_device
+from unet_convlstm_tpu_torch.train.config import check_mesh
 from unet_convlstm_tpu_torch.train.guard import TrainingGuard as TGuard
 
 CONFIGS = sorted((pathlib.Path(__file__).resolve().parents[1] / "configs")
@@ -52,9 +52,15 @@ def test_repo_configs_load_equal(path):
 @pytest.mark.parametrize("over", [{"mesh_data": "2"}, {"mesh_model": "2"},
                                   {"zero1": "true"}])
 def test_multi_device_keys_raise(over):
-    check_single_device(TCfg().apply_overrides({"mesh_data": "1"}))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        check_single_device(TCfg().apply_overrides(over))
+    """Data parallelism and ZeRO-1 (item 7a) pass the config check; a
+    tensor-parallel mesh (item 7b) raises."""
+    check_mesh(TCfg().apply_overrides({"mesh_data": "1"}))
+    cfg = TCfg().apply_overrides(over)
+    if "mesh_model" in over:
+        with pytest.raises(NotImplementedError, match="item 7b"):
+            check_mesh(cfg)
+    else:
+        check_mesh(cfg)
 
 
 def test_guard_decisions_and_state_equal_jax():

@@ -78,8 +78,9 @@ def test_evaluate_float_and_int8(files, capsys):
 
 
 def test_evaluate_refuses_multi_device(files):
+    """--mesh-data 2 outside torchrun: no process group to run on."""
     d, npz, ckpt = files
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="torchrun"):
         cli_main(["evaluate", "--checkpoint", ckpt, "--npz", npz,
                   "--mesh-data", "2", "--device", "cpu"])
 

@@ -135,7 +135,12 @@ def test_histogram_function_equals_jnp_histogram():
 
 
 def test_multi_device_arguments_raise(npz):
+    """A mesh that is no parallel.Mesh, and tensor-parallel variables
+    (item 7b), raise; data parallelism runs (test_torch_parallel.py)."""
     ds = NPZSequenceDataset(npz)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         evaluate_model(lambda *a, **k: None, torch.nn.Linear(1, 1), ds,
                        mesh=object())
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        evaluate_model(lambda *a, **k: None, torch.nn.Linear(1, 1), ds,
+                       variables_sharding=object())

@@ -105,7 +105,7 @@ def test_native_sources_are_the_ports_own():
 SUBPACKAGES = {"core": "core", "data": "data", "datagen": "datagen",
                "eval": "eval", "models": "models", "native": "native",
                "ops": "ops", "ops.pallas": "ops.kernels",
-               "parallel": None, "train": "train", "utils": "utils",
+               "parallel": "parallel", "train": "train", "utils": "utils",
                "viz": "viz"}
 # a re-exported JAX name the port has under another name or place
 COUNTERPARTS = {
@@ -139,9 +139,6 @@ NO_COUNTERPART = {
     "utils.convert_resnet18_state_dict": "the port's encoder takes "
                                          "torchvision's names and layouts "
                                          "as they are (load_torch_resnet18)",
-    **{f"parallel.{n}": "multi-device, ROADMAP.md queue A item 7"
-       for n in ("make_mesh", "batch_sharding", "replicated_sharding",
-                 "shard_batch_spec", "MeshRules")},
 }
 
 

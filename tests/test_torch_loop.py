@@ -221,8 +221,8 @@ def test_fit_checks(npz, tmp_path):
     with pytest.raises(ValueError, match="accum_steps"):
         tloop.fit(_cfg(TrainConfig, npz, str(tmp_path), accum_steps=3),
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tloop.fit(_cfg(TrainConfig, npz, str(tmp_path), zero1="true"),
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        tloop.fit(_cfg(TrainConfig, npz, str(tmp_path), mesh_model=2),
                   device="cpu")
 
 

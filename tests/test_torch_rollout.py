@@ -130,6 +130,8 @@ def test_streaming_equals_whole_sequence(family):
 
 
 def test_multi_device_rollout_raises():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """A mesh that is no parallel.Mesh raises; data parallelism runs
+    (test_torch_parallel.py)."""
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         rollout_scan(None, None, torch.zeros(1, 1, 2, 2, 1), None,
                      mesh=object())

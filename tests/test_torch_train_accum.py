@@ -93,12 +93,17 @@ def test_eval_step_with_padded_rows_matches_jax(use_mask):
 
 
 def test_multi_device_entry_points_raise():
+    """Tensor parallelism (item 7b) and K steps a dispatch (item 7c) raise
+    citing the roadmap; a mesh that is no parallel.Mesh raises a TypeError
+    (data parallelism runs: test_torch_parallel.py)."""
     v, _, _, stats = make_case(5)
     _, apply = torch_model(v)
-    for kw in ({"mesh": object()}, {"state_sharding": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tsteps.make_train_step(apply, stats, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsteps.make_eval_step(apply, stats, mesh=object())
+        tsteps.make_train_step(apply, stats, state_sharding=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tsteps.make_eval_step(apply, stats, variables_sharding=object())
+    for make in (tsteps.make_train_step, tsteps.make_eval_step):
+        with pytest.raises(TypeError, match="parallel.Mesh"):
+            make(apply, stats, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tsteps.make_multi_train_step(apply, stats)

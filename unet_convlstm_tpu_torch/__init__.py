@@ -17,6 +17,9 @@ mirrors its layout so that each module has a counterpart of the same name:
 * ``datagen`` — the data chain: stage A (LES patches), stage B (the
                 deterministic renderer and the Monte-Carlo path tracer),
                 stage C (velocity maps) and stage D (training sequences).
+* ``parallel`` — a ``torch.distributed`` process group as the JAX
+                package's ``(data, model)`` mesh: data parallelism and
+                ZeRO-1's partition rule.
 
 It imports torch, never jax, and nothing of the JAX package. Entry points
 run on the card unless the caller passes ``device="cpu"``.

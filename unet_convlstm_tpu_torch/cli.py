@@ -10,9 +10,13 @@ the data chain's ``gen-patches``, ``gen-renders``, ``gen-maps`` and
         --npz mm.npz epochs=2 checkpoint_dir=ckpts
     python -m unet_convlstm_tpu_torch train --config configs/mnist_small.json \\
         --npz mm.npz --resume ckpts/custom_last.pt epochs=3
+    torchrun --nproc-per-node 2 -m unet_convlstm_tpu_torch train \\
+        --config configs/mnist_small.json --npz mm.npz mesh_data=2 zero1=true
     python -m unet_convlstm_tpu_torch overfit --npz mm.npz --base-ch 16
     python -m unet_convlstm_tpu_torch evaluate --checkpoint ckpts/custom_best.pt \\
         --npz mm.npz --out-dir eval_out --batch-size 32 [--int8 --int8-calib 2]
+    torchrun --nproc-per-node 2 -m unet_convlstm_tpu_torch evaluate \\
+        --checkpoint ckpts/custom_best.pt --npz mm.npz --mesh-data 2
     python -m unet_convlstm_tpu_torch rollout --checkpoint ckpts/custom_best.pt \\
         --npz mm.npz --sequence-idx 2 --out roll.mp4 [--int8]
     python -m unet_convlstm_tpu_torch serve --checkpoint ckpts/custom_best.pt \\
@@ -36,6 +40,11 @@ the data chain's ``gen-patches``, ``gen-renders``, ``gen-maps`` and
         --checkpoint ckpts/custom_best.pt --quantize ckpts/custom_int8.pt
     python -m unet_convlstm_tpu_torch doctor [--device cpu]
 
+Data-parallel ``train`` (a config's ``mesh_data`` > 1, with ``zero1``) and
+``evaluate --mesh-data N`` run one process a rank under torchrun, which
+gives each its rank; the process group is NCCL on the cards (LOCAL_RANK
+picks the card) and gloo with ``--device cpu``. Only rank 0 writes.
+
 Runs on the card unless ``--device cpu`` is given (``gen-patches``,
 ``stats``, ``inspect`` and ``convert-checkpoint`` are host work; the .nc
 files are read with netCDF4 or h5py). ``evaluate`` draws its
@@ -46,6 +55,7 @@ otherwise each says what it did not draw and writes everything else.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import functools
 import importlib.util
@@ -54,8 +64,6 @@ import os
 import sys
 from typing import Dict, List, Optional
 
-MULTI_DEVICE = ("multi-device evaluation (--mesh-data > 1) is not ported "
-                "yet (ROADMAP.md, queue A item 7: multi-device)")
 
 
 def _parse_overrides(pairs: List[str]) -> Dict[str, str]:
@@ -83,9 +91,31 @@ def cmd_train(args) -> None:
         cfg.npz_path = args.npz
     if not cfg.npz_path:
         raise SystemExit("need --npz or npz_path in the config")
-    result = fit(cfg, profile_dir=args.profile_dir, resume_from=args.resume,
-                 device=args.device)
-    print(f"best val loss: {result['best_val_loss']:.6f}")
+    with _data_parallel(cfg.mesh_data or 1, args.device) as (mesh, device):
+        result = fit(cfg, profile_dir=args.profile_dir,
+                     resume_from=args.resume, device=device,
+                     group=mesh.group if mesh is not None else None)
+        if mesh is None or mesh.rank == 0:
+            print(f"best val loss: {result['best_val_loss']:.6f}")
+
+
+@contextlib.contextmanager
+def _data_parallel(n: int, device):
+    """(mesh, device) of a data-parallel command: for n > 1 the process
+    group torchrun's environment describes (parallel.init_group_from_env),
+    destroyed on exit; (None, device) for one process."""
+    if n <= 1:
+        yield None, device
+        return
+    import torch.distributed as dist
+
+    from .parallel.mesh import init_group_from_env
+
+    mesh, dev = init_group_from_env(device, data=n)
+    try:
+        yield mesh, dev
+    finally:
+        dist.destroy_process_group()
 
 
 def _load_checkpoint_for_eval(ckpt_path: str, device=None):
@@ -133,17 +163,21 @@ def _calibration_batches(dataset, train_cfg, n_batches: int,
 
 def cmd_evaluate(args) -> None:
     """The metric suite (reference get_metrics.py) on the replayed
-    validation split: report.json and the figures."""
+    validation split: report.json and the figures. With --mesh-data N
+    (under torchrun) the pass runs data parallel and rank 0 writes."""
+    with _data_parallel(args.mesh_data, args.device) as (mesh, device):
+        _evaluate(args, mesh, device)
+
+
+def _evaluate(args, mesh, device) -> None:
     import numpy as np
 
     from .data.npz_dataset import NPZSequenceDataset
     from .eval.metrics import evaluate_model
     from .ops.quant import calibrate_tree, quantize_model
 
-    if args.mesh_data > 1:
-        raise NotImplementedError(MULTI_DEVICE)
     model, apply_fn, _, meta, norm_stats = _load_checkpoint_for_eval(
-        args.checkpoint, args.device)
+        args.checkpoint, device)
     if args.int8 and not meta.get("int8"):
         model = quantize_model(model)
     dataset = NPZSequenceDataset(args.npz, stats=norm_stats)
@@ -162,7 +196,10 @@ def cmd_evaluate(args) -> None:
                             batch_size=args.batch_size,
                             use_mask=args.use_mask,
                             train_frac=train_cfg.get("train_frac", 0.8),
-                            split_seed=train_cfg.get("split_seed", 42))
+                            split_seed=train_cfg.get("split_seed", 42),
+                            mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        return
     print(f"MAE={report.mae:.4f}  RMSE={report.rmse:.4f}  "
           f"bias={report.bias:+.4f}  err_std={report.err_std:.4f} [m/s]")
     os.makedirs(args.out_dir, exist_ok=True)
@@ -301,7 +338,7 @@ def cmd_gen_renders(args) -> None:
     if args.data_parallel:
         raise NotImplementedError(
             "gen-renders --data-parallel: multi-device rendering is not "
-            "ported yet (ROADMAP.md, queue A item 7: multi-device)")
+            "ported yet (ROADMAP.md, queue A item 7c: the mesh surface)")
     n = render_dataset(args.input, args.output, args.csv,
                        resolution=(args.res, args.res), fov_deg=args.fov,
                        g=args.g, start=args.start, end=args.end,
@@ -633,8 +670,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --int8: calibrate static per-conv activation "
                         "scales on N train-split batches before evaluating")
     e.add_argument("--mesh-data", type=int, default=1,
-                   help="data-parallel evaluation over N devices (not "
-                        "ported yet: N > 1 raises)")
+                   help="data-parallel evaluation over N processes, one a "
+                        "card, launched with torchrun --nproc-per-node N "
+                        "(--batch-size must be divisible by N)")
     _device_arg(e)
     e.set_defaults(fn=cmd_evaluate)
 
@@ -902,5 +940,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> None:
+    # cuBLAS reads its deterministic workspace setting at its first handle:
+    # before any command starts CUDA (the training paths run deterministic)
+    from .core.determinism import set_cublas_workspace_config
+
+    set_cublas_workspace_config()
     args = build_parser().parse_args(argv)
     args.fn(args)

@@ -10,7 +10,7 @@
 //   z[n,h,w,ci] = relu(x*inv[ci] + shift[ci]) rounded to x's dtype   (or x)
 //   z           = 0 outside the image: SAME padding is zero in z-space
 //   y[n,h,w,co] = round(bias[co] + sum_k z[...] * w[...])   f32 accumulation
-//   sum[co]    += y,  sumsq[co] += y*y    over the ROUNDED y, in f32
+//   sum[co]     = sum of y,  sumsq[co] = sum of y*y   over the ROUNDED y, f32
 //
 // An implicit GEMM: M = N*H*W output pixels, K = 9*Cin, N = Cout.
 //
@@ -29,7 +29,8 @@
 //   block of shifted pixel rows and one test per row says whether the row
 //   lies outside the image. Weight tiles come by TMA (`cp.async.bulk.tensor`
 //   with an mbarrier per stage) from a K-major copy [Cout, 9*Cin] that a
-//   prep kernel writes (it also zeroes sum and sumsq); x rows come by
+//   prep kernel writes (it also zeroes sum and sumsq, which an empty batch
+//   returns); x rows come by
 //   `cp.async` 16-byte vectors, zero-filled outside the image. The loads of
 //   the next stages overlap the products of the current one. The prologue
 //   runs once per staged element, between its arrival and its product:
@@ -41,8 +42,20 @@
 //   `conv3x3_fused_splitk_reduce` adds them in a fixed order. The epilogue
 //   (in the block, or in the reduce pass) adds the bias in f32, rounds once,
 //   stores y with 16-byte stores and reduces the rounded values per channel
-//   in shared memory before one atomicAdd per channel and block. y is the
-//   same bits from run to run; the sums are atomics in no fixed order.
+//   in shared memory in a fixed order.
+//
+// The per-channel sums, both routes: the TPU kernel adds each grid step's
+// sums to one accumulator in grid order, so its sums are the same bits on
+// every run; here blocks run in parallel. So no block adds to a shared
+// total: the 128-pixel row of blocks x (blockIdx.x, one of nblk =
+// ceil(M/128)) writes its partials to its own column of part [2, Cout,
+// nblk] (sums, then squares), and `conv3x3_fused_stats_finish` (one block
+// a channel, as K6's second pass in channel_stats.cu) adds each channel's
+// nblk partials in a fixed order: a strided pass a thread, shuffles, the
+// warps in order. Where K is split, the reduce pass writes the partials
+// (the main kernel writes none). No float atomics: y and the sums are the
+// same bits from run to run; the finishing pass reads nblk * Cout * 8
+// bytes.
 // * `conv3x3_fused_fwd` (f32, the FP32 policy's parity route, and the bf16
 //   shapes the first cannot take): 128x64 tiles, eight warps of WMMA
 //   (bf16) or FMA (f32), K in chunks of 32 staged without overlap.
@@ -80,13 +93,66 @@ __device__ __forceinline__ float prologue(float x, float inv, float shift) {
   return z;
 }
 
+constexpr int BLOCK_ROWS = 128;    // output pixels a block of either route
+constexpr int FINISH_THREADS = 256;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
+  return v;
+}
+
+// One block a channel: sum[c] and sumsq[c] from the nblk partials in
+// part [2, Cout, nblk], in a fixed order (a strided pass per thread, then
+// shuffles, then the warps in order).
+__global__ void __launch_bounds__(FINISH_THREADS)
+conv3x3_fused_stats_finish_kernel(const float* __restrict__ part, int nblk,
+                                  int Cout, float* __restrict__ sum,
+                                  float* __restrict__ sumsq) {
+  __shared__ float w_sum[FINISH_THREADS / 32], w_sq[FINISH_THREADS / 32];
+  const int c = blockIdx.x;
+  const float* ps = part + (int64_t)c * nblk;
+  const float* pq = part + (int64_t)(Cout + c) * nblk;
+  float a = 0.0f, b = 0.0f;
+  for (int i = threadIdx.x; i < nblk; i += FINISH_THREADS) {
+    a += ps[i];
+    b += pq[i];
+  }
+  a = warp_sum(a);
+  b = warp_sum(b);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+    w_sum[warp] = a;
+    w_sq[warp] = b;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float ta = 0.0f, tb = 0.0f;
+    for (int w = 0; w < FINISH_THREADS / 32; ++w) {
+      ta += w_sum[w];
+      tb += w_sq[w];
+    }
+    sum[c] = ta;
+    sumsq[c] = tb;
+  }
+}
+
+int stats_finish(const void* part, int M, int Cout, void* sum, void* sumsq,
+                 cudaStream_t stream) {
+  const int nblk = (M + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  conv3x3_fused_stats_finish_kernel<<<Cout, FINISH_THREADS, 0, stream>>>(
+      static_cast<const float*>(part), nblk, Cout, static_cast<float*>(sum),
+      static_cast<float*>(sumsq));
+  return (int)cudaGetLastError();
+}
+
 // ===========================================================================
 // The generic route: f32, and bf16 shapes the wgmma route does not take
 // ===========================================================================
 
 namespace generic {
 
-constexpr int BM = 128;      // output pixels per block
+constexpr int BM = BLOCK_ROWS;   // output pixels per block
 constexpr int BN = 64;       // output channels per block
 constexpr int BK = 32;       // K chunk staged per step
 constexpr int THREADS = 256; // 8 warps
@@ -132,8 +198,8 @@ conv3x3_fused_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wk,
                          const float* __restrict__ bias,
                          const float* __restrict__ inv,
                          const float* __restrict__ shift, T* __restrict__ y,
-                         float* __restrict__ sum, float* __restrict__ sumsq,
-                         int H, int W, int Cin, int Cout, int M) {
+                         float* __restrict__ part, int H, int W, int Cin,
+                         int Cout, int M) {
   using TT = Tile<T>;
   constexpr int VEC = TT::VEC;
   constexpr int A_VPR = BK / VEC;   // vectors per A row
@@ -312,23 +378,26 @@ conv3x3_fused_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wk,
       s += red_s[g][tid];
       q += red_q[g][tid];
     }
-    atomicAdd(sum + n0 + tid, s);
-    atomicAdd(sumsq + n0 + tid, q);
+    // this row of blocks' column of part (the finishing pass adds them)
+    part[(int64_t)(n0 + tid) * gridDim.x + blockIdx.x] = s;
+    part[(int64_t)(Cout + n0 + tid) * gridDim.x + blockIdx.x] = q;
   }
 }
 
 template <typename T, bool PROLOGUE>
 int launch(const void* x, const void* wk, const void* bias, const void* inv,
-           const void* shift, void* y, void* sum, void* sumsq, int N, int H,
-           int W, int Cin, int Cout, cudaStream_t stream) {
+           const void* shift, void* y, void* sum, void* sumsq, void* part,
+           int N, int H, int W, int Cin, int Cout, cudaStream_t stream) {
   const int M = N * H * W;
   const dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN);
   conv3x3_fused_fwd_kernel<T, PROLOGUE><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wk),
       static_cast<const float*>(bias), static_cast<const float*>(inv),
       static_cast<const float*>(shift), static_cast<T*>(y),
-      static_cast<float*>(sum), static_cast<float*>(sumsq), H, W, Cin, Cout, M);
-  return (int)cudaGetLastError();
+      static_cast<float*>(part), H, W, Cin, Cout, M);
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return stats_finish(part, M, Cout, sum, sumsq, stream);
 }
 
 }  // namespace generic
@@ -341,9 +410,9 @@ namespace hopper {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BM = 128;       // output pixels per block: two warpgroups of 64
+constexpr int BM = BLOCK_ROWS;  // output pixels per block: two warpgroups of 64
 constexpr int THREADS = 256;  // every thread loads; each warpgroup multiplies
-constexpr int REDUCE_COLS = 64, REDUCE_ROWS = 128;  // the split-K pass's tile
+constexpr int REDUCE_COLS = 64, REDUCE_ROWS = BLOCK_ROWS;  // the split-K pass's tile
 constexpr int BAR_BYTES = 64;   // the stages' mbarriers; keeps inv/shift 16-byte aligned
 
 // error codes beside cudaError_t's (which are positive)
@@ -580,10 +649,9 @@ conv3x3_fused_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
                            const float* __restrict__ bias,
                            const float* __restrict__ inv,
                            const float* __restrict__ shift,
-                           bf16* __restrict__ y, float* __restrict__ sum,
-                           float* __restrict__ sumsq, float* __restrict__ ws,
-                           int H, int W, int Cin, int Cout, int M,
-                           int splits) {
+                           bf16* __restrict__ y, float* __restrict__ part,
+                           float* __restrict__ ws, int H, int W, int Cin,
+                           int Cout, int M, int splits) {
   using C = Cfg<BN, BK>;
   extern __shared__ uint8_t smem_raw[];
   // 1024-byte alignment: the 128-byte swizzle's period
@@ -790,8 +858,8 @@ conv3x3_fused_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
     }
   }
 
-  // the block's sums: shared memory past the y tile, then one atomicAdd
-  // per channel
+  // the block's sums: shared memory past the y tile, added in group
+  // order, then this row of blocks' column of part
   float* red = reinterpret_cast<float*>(smem + BM * C::LDY * 2);
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
@@ -805,20 +873,19 @@ conv3x3_fused_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
       ts += red[g * BN + tid];
       tq += red[(C::GROUPS + g) * BN + tid];
     }
-    atomicAdd(sum + n0 + tid, ts);
-    atomicAdd(sumsq + n0 + tid, tq);
+    part[(int64_t)(n0 + tid) * gridDim.x + blockIdx.x] = ts;
+    part[(int64_t)(Cout + n0 + tid) * gridDim.x + blockIdx.x] = tq;
   }
 }
 
 // y = round(bias + sum over splits of the partials, in split order), 16-byte
-// stores, per-channel sums of the rounded y: one atomicAdd per channel and
-// block. A block takes 64 channels of 128 rows; a thread 8 channels.
+// stores, per-channel sums of the rounded y into this row of blocks' column
+// of part. A block takes 64 channels of 128 rows; a thread 8 channels.
 __global__ void __launch_bounds__(256)
 conv3x3_fused_splitk_reduce_kernel(const float* __restrict__ ws,
                                    const float* __restrict__ bias,
                                    bf16* __restrict__ y,
-                                   float* __restrict__ sum,
-                                   float* __restrict__ sumsq, int M,
+                                   float* __restrict__ part, int M,
                                    int Cout, int splits) {
   constexpr int CG = REDUCE_COLS / 8, RG = 256 / CG;
   __shared__ float red[2][RG][REDUCE_COLS];
@@ -876,8 +943,8 @@ conv3x3_fused_splitk_reduce_kernel(const float* __restrict__ ws,
       ts += red[0][g][threadIdx.x];
       tq += red[1][g][threadIdx.x];
     }
-    atomicAdd(sum + c, ts);
-    atomicAdd(sumsq + c, tq);
+    part[(int64_t)c * gridDim.x + blockIdx.x] = ts;
+    part[(int64_t)(Cout + c) * gridDim.x + blockIdx.x] = tq;
   }
 }
 
@@ -935,9 +1002,9 @@ EncodeTiled encoder() {
 
 template <int BN, int BK, bool PRO>
 int launch_main(const CUtensorMap& map, const void* x, const void* bias,
-                const void* inv, const void* shift, void* y, void* sum,
-                void* sumsq, void* ws, int M, int H, int W, int Cin, int Cout,
-                int splits, cudaStream_t stream) {
+                const void* inv, const void* shift, void* y, void* part,
+                void* ws, int M, int H, int W, int Cin, int Cout, int splits,
+                cudaStream_t stream) {
   using C = Cfg<BN, BK>;
   const int smem = 1024 + C::MAIN_BYTES + BAR_BYTES + (PRO ? 8 * Cin : 0);
   auto kernel = conv3x3_fused_wgmma_kernel<BN, BK, PRO>;
@@ -957,22 +1024,21 @@ int launch_main(const CUtensorMap& map, const void* x, const void* bias,
   kernel<<<grid, THREADS, smem, stream>>>(
       map, static_cast<const bf16*>(x), static_cast<const float*>(bias),
       static_cast<const float*>(inv), static_cast<const float*>(shift),
-      static_cast<bf16*>(y), static_cast<float*>(sum),
-      static_cast<float*>(sumsq), static_cast<float*>(ws), H, W, Cin, Cout, M,
-      splits);
+      static_cast<bf16*>(y), static_cast<float*>(part),
+      static_cast<float*>(ws), H, W, Cin, Cout, M, splits);
   return (int)cudaGetLastError();
 }
 
 template <int BN, int BK>
 int dispatch_pro(bool pro, const CUtensorMap& map, const void* x,
                  const void* bias, const void* inv, const void* shift,
-                 void* y, void* sum, void* sumsq, void* ws, int M, int H,
-                 int W, int Cin, int Cout, int splits, cudaStream_t s) {
+                 void* y, void* part, void* ws, int M, int H, int W, int Cin,
+                 int Cout, int splits, cudaStream_t s) {
   if (pro)
-    return launch_main<BN, BK, true>(map, x, bias, inv, shift, y, sum, sumsq,
-                                     ws, M, H, W, Cin, Cout, splits, s);
-  return launch_main<BN, BK, false>(map, x, bias, inv, shift, y, sum, sumsq,
-                                    ws, M, H, W, Cin, Cout, splits, s);
+    return launch_main<BN, BK, true>(map, x, bias, inv, shift, y, part, ws, M,
+                                     H, W, Cin, Cout, splits, s);
+  return launch_main<BN, BK, false>(map, x, bias, inv, shift, y, part, ws, M,
+                                    H, W, Cin, Cout, splits, s);
 }
 
 }  // namespace hopper
@@ -982,32 +1048,35 @@ int dispatch_pro(bool pro, const CUtensorMap& map, const void* x,
 // The generic route. x [N,H,W,Cin], wk [9*Cin, Cout] (both bf16 if is_bf16
 // else f32), bias [Cout] f32, inv/shift [Cin] f32 (read only with
 // has_prologue) → y [N,H,W,Cout] in x's dtype; sum/sumsq [Cout] f32, which
-// the caller zeroes and this launch adds to. All contiguous, 16-byte
-// aligned, Cin % 8 == 0, Cout % 8 == 0, N*H*W*max(Cin, Cout) < 2^31.
-// Returns cudaGetLastError().
+// the finishing pass writes (an empty batch launches nothing and leaves
+// them as they are); part [2, Cout, ceil(N*H*W/128)] f32, the blocks'
+// partials. All contiguous, 16-byte aligned, Cin % 8 == 0, Cout % 8 == 0,
+// N*H*W*max(Cin, Cout) < 2^31. Returns cudaGetLastError().
 extern "C" int conv3x3_fused_fwd(const void* x, const void* wk,
                                  const void* bias, const void* inv,
                                  const void* shift, void* y, void* sum,
-                                 void* sumsq, int N, int H, int W, int Cin,
-                                 int Cout, int has_prologue, int is_bf16,
-                                 void* stream) {
+                                 void* sumsq, void* part, int N, int H, int W,
+                                 int Cin, int Cout, int has_prologue,
+                                 int is_bf16, void* stream) {
   using namespace generic;
   if ((long long)N * H * W == 0 || Cout == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (has_prologue)
-      return launch<__nv_bfloat16, true>(x, wk, bias, inv, shift, y, sum, sumsq, N, H, W, Cin, Cout, s);
-    return launch<__nv_bfloat16, false>(x, wk, bias, inv, shift, y, sum, sumsq, N, H, W, Cin, Cout, s);
+      return launch<__nv_bfloat16, true>(x, wk, bias, inv, shift, y, sum, sumsq, part, N, H, W, Cin, Cout, s);
+    return launch<__nv_bfloat16, false>(x, wk, bias, inv, shift, y, sum, sumsq, part, N, H, W, Cin, Cout, s);
   }
   if (has_prologue)
-    return launch<float, true>(x, wk, bias, inv, shift, y, sum, sumsq, N, H, W, Cin, Cout, s);
-  return launch<float, false>(x, wk, bias, inv, shift, y, sum, sumsq, N, H, W, Cin, Cout, s);
+    return launch<float, true>(x, wk, bias, inv, shift, y, sum, sumsq, part, N, H, W, Cin, Cout, s);
+  return launch<float, false>(x, wk, bias, inv, shift, y, sum, sumsq, part, N, H, W, Cin, Cout, s);
 }
 
 // The wgmma route, one call: the prep kernel (w [Cout, Cin, 3, 3], bf16 if
 // w_is_bf16 else f32 → wt [Cout, 9*Cin] bf16; sum = sumsq = 0), the
 // tensor map over wt, the main kernel on a (ceil(M/128), Cout/bn, splits)
-// grid and, with splits > 1, the reduce pass over ws [splits, M, Cout] f32.
+// grid and, with splits > 1, the reduce pass over ws [splits, M, Cout] f32,
+// then the finishing pass over part [2, Cout, ceil(M/128)] f32 (the
+// partials of the main kernel, or of the reduce pass where K is split).
 // With M == 0 only the prep kernel runs (the sums come back 0).
 // x, y bf16 NHWC; bias [Cout], inv/shift [Cin] f32. The plan (bn, bk,
 // splits) comes from the wrapper's planner: bn in {16, 32, 64, 128}
@@ -1016,8 +1085,9 @@ extern "C" int conv3x3_fused_fwd(const void* x, const void* wk,
 extern "C" int conv3x3_fused_wgmma(const void* x, const void* w, int w_is_bf16,
                                    const void* bias, const void* inv,
                                    const void* shift, void* wt, void* y,
-                                   void* sum, void* sumsq, void* ws, int N,
-                                   int H, int W, int Cin, int Cout,
+                                   void* sum, void* sumsq, void* ws,
+                                   void* part, int N, int H, int W, int Cin,
+                                   int Cout,
                                    int has_prologue, int bn, int bk,
                                    int splits, void* stream) {
   using namespace hopper;
@@ -1059,8 +1129,8 @@ extern "C" int conv3x3_fused_wgmma(const void* x, const void* w, int w_is_bf16,
   const bool pro = has_prologue != 0;
 #define K2_TILE(BN_, BK_)                                                   \
   if (bn == BN_ && bk == BK_)                                               \
-    rc = dispatch_pro<BN_, BK_>(pro, map, x, bias, inv, shift, y, sum,      \
-                                sumsq, ws, M, H, W, Cin, Cout, splits, s);  \
+    rc = dispatch_pro<BN_, BK_>(pro, map, x, bias, inv, shift, y, part, ws, \
+                                M, H, W, Cin, Cout, splits, s);             \
   else
   K2_TILE(16, 16) K2_TILE(16, 32) K2_TILE(16, 64)
   K2_TILE(32, 16) K2_TILE(32, 32) K2_TILE(32, 64)
@@ -1068,13 +1138,15 @@ extern "C" int conv3x3_fused_wgmma(const void* x, const void* w, int w_is_bf16,
   K2_TILE(128, 16) K2_TILE(128, 32) K2_TILE(128, 64)
   return ERR_PLAN;
 #undef K2_TILE
-  if (rc != 0 || splits == 1) return rc;
+  if (rc != 0) return rc;
+  if (splits == 1) return stats_finish(part, M, Cout, sum, sumsq, s);
 
   const dim3 grid((M + REDUCE_ROWS - 1) / REDUCE_ROWS,
                   (Cout + REDUCE_COLS - 1) / REDUCE_COLS);
   conv3x3_fused_splitk_reduce_kernel<<<grid, 256, 0, s>>>(
       static_cast<const float*>(ws), static_cast<const float*>(bias),
-      static_cast<bf16*>(y), static_cast<float*>(sum),
-      static_cast<float*>(sumsq), M, Cout, splits);
-  return (int)cudaGetLastError();
+      static_cast<bf16*>(y), static_cast<float*>(part), M, Cout, splits);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return stats_finish(part, M, Cout, sum, sumsq, s);
 }

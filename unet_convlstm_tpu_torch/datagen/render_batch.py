@@ -85,7 +85,7 @@ def render_dataset(input_root: str, output_root: str, csv_path: str,
     if mesh is not None:
         raise NotImplementedError(
             "render_dataset(mesh=...): multi-device rendering is not ported "
-            "yet (ROADMAP.md, queue A item 7: multi-device)")
+            "yet (ROADMAP.md, queue A item 7c: the mesh surface)")
     device = resolve_device(device)
     if mc_spp > 0 and ms_orders > 1:
         raise ValueError(

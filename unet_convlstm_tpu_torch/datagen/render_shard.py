@@ -54,7 +54,7 @@ def render_views_batch(beta_batch, views: Sequence[Tuple], sun_dir,
     if mesh is not None:
         raise NotImplementedError(
             "render_views_batch(mesh=...): multi-device rendering is not "
-            "ported yet (ROADMAP.md, queue A item 7: multi-device)")
+            "ported yet (ROADMAP.md, queue A item 7c: the mesh surface)")
     if camera_method not in ("auto", "ortho", "march"):
         raise ValueError(f"unknown camera_method {camera_method!r}: "
                          "expected 'auto', 'ortho' or 'march'")

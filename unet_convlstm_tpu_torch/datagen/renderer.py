@@ -214,6 +214,17 @@ def _shift2d(E: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
             + fy * ((1 - fx) * s10 + fx * s11))
 
 
+def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The running sum along ``dim`` taken one layer at a time, a fixed
+    order: the same bits on every run and device setting (CUDA's
+    floating-point ``torch.cumsum`` adds in an order of its own, and torch's
+    deterministic mode refuses it)."""
+    parts = list(x.unbind(dim))
+    for k in range(1, len(parts)):
+        parts[k] = parts[k - 1] + parts[k]
+    return torch.stack(parts, dim)
+
+
 def _sun_transmittance_shear_impl(beta, sx, sy, delta, pad: int):
     """O(V) shear-warp optical depth of each patch [B, Z, Y, X] (beta
     z-ordered so the sun side is the LAST layer; (sx, sy) = ray shear in
@@ -227,7 +238,7 @@ def _sun_transmittance_shear_impl(beta, sx, sy, delta, pad: int):
     E = F.pad(beta, (2 * pad, 2 * pad + 1, 2 * pad, 2 * pad + 1))
     zi = torch.arange(nz, dtype=torch.float32, device=beta.device)
     sb = _shift2d(E, pad + sy * zi, pad + sx * zi, P_y, P_x)
-    rev = torch.cumsum(sb.flip(1), dim=1).flip(1)     # sum_{k >= z} sb[k]
+    rev = _cumsum(sb.flip(1), dim=1).flip(1)          # sum_{k >= z} sb[k]
     tau_sh = delta * (rev - 0.5 * sb)                 # marcher quadrature
     tau_sh = F.pad(tau_sh, (0, 1, 0, 1))
     tau = _shift2d(tau_sh, pad - sy * zi, pad - sx * zi, ny, nx)
@@ -443,7 +454,7 @@ def _render_ortho_impl(beta, t_sun, voxel_size, min_bound, max_bound,
     sb = _shift2d(E, e_y - m_y + sy * (ki - k_ref),
                   e_x - m_x + sx * (ki - k_ref), W_y, W_x)
     b = sb[..., 0]                                    # [B, nz, W_y, W_x]
-    tau_incl = delta * torch.cumsum(b, dim=1)
+    tau_incl = delta * _cumsum(b, dim=1)
     wgt = torch.exp(-(tau_incl - delta * b)) * delta  # exp(-τ_excl)·Δ
     comp = torch.sum(wgt[..., None] * sb[..., 1:], dim=1)
     planes = torch.cat([comp, tau_incl[:, -1][..., None]], dim=-1)

@@ -35,7 +35,7 @@ from .raycast import (VolumeGrid, _first_hit_batch, _z_slice_batch,
 
 FIXED_NADIR_CAMERA_M = np.array([0.0, 0.0, 600.0 * 1000.0])
 MULTI_DEVICE = ("build_velocity_maps(mesh=...): multi-device ray casting is "
-                "not ported yet (ROADMAP.md, queue A item 7: multi-device)")
+                "not ported yet (ROADMAP.md, queue A item 7c: the mesh surface)")
 
 
 def render_patch_maps(grid: VolumeGrid, cam_pos, look_at,

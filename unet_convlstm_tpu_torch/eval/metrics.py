@@ -12,6 +12,13 @@ histograms and a per-row gather of the sampled pixels, all reduced there
 (f32); only those cross to the host, where they accumulate in float64 as
 in the JAX package.
 
+Data parallel (``mesh``, a ``parallel.Mesh`` of D ranks, as the JAX pass
+shards the batch over 'data'): every rank reads each padded batch, draws
+the same per-row scatter indices, and runs its B/D rows; the batch's sums
+and histograms are summed over the ranks and the sampled pixels gathered
+in row order, so each rank's report is the one-device report (up to the
+order of the f32 sums).
+
 The histograms follow ``jnp.histogram``'s rule exactly (``torch.histogram``
 has no CUDA implementation and ``torch.histc`` takes no weights): the f32
 edges of ``jnp.linspace(lo, hi, bins + 1)`` (``histogram_edges``), a
@@ -33,9 +40,8 @@ from ..data.npz_dataset import NPZSequenceDataset
 from ..data.pipeline import SequenceLoader, pad_batch
 from ..ops.normalize import (compute_mask, denormalize_y, normalize_x,
                              normalize_y)
+from ..parallel.mesh import MODEL_PARALLEL, data_mesh
 
-MULTI_DEVICE = ("multi-device evaluation (mesh=, variables_sharding=) is "
-                "not ported yet (ROADMAP.md, queue A item 7: multi-device)")
 
 
 @dataclasses.dataclass
@@ -111,17 +117,19 @@ def _model_device(model: torch.nn.Module) -> torch.device:
 def _make_eval_batch_fn(apply_fn: Callable, stats, use_mask: bool,
                         hist_range=(-10.0, 10.0), hist_bins: int = 100,
                         err_range=(-5.0, 5.0), device=None):
-    """(model, x_raw, y_raw, sample_idx [B, k], n_valid) → the batch's
-    reductions, on ``device``. ``n_valid``: the real rows of a zero-padded
-    tail batch. Only the ``sample_idx`` pixels of each row are gathered for
-    the balanced scatter."""
+    """(model, x_raw, y_raw, sample_idx [B, k], n_valid, row0) → the
+    batch's reductions, on ``device``. ``n_valid``: the real rows of a
+    zero-padded tail batch; ``row0``: the global index of x_raw's first row
+    (a data-parallel rank's rows). Only the ``sample_idx`` pixels of each
+    row are gathered for the balanced scatter."""
     edges = torch.from_numpy(histogram_edges(*hist_range, hist_bins)).to(
         device)
     err_edges = torch.from_numpy(histogram_edges(*err_range, hist_bins)).to(
         device)
 
     @torch.inference_mode()
-    def batch_fn(model, x_raw, y_raw, sample_idx, n_valid: int):
+    def batch_fn(model, x_raw, y_raw, sample_idx, n_valid: int,
+                 row0: int = 0):
         x = normalize_x(x_raw, stats)
         y = normalize_y(y_raw, stats)
         mask = compute_mask(x_raw, stats)
@@ -130,7 +138,8 @@ def _make_eval_batch_fn(apply_fn: Callable, stats, use_mask: bool,
         gt_d = denormalize_y(y, stats)
         diff = pred_d - gt_d
         B = x_raw.shape[0]
-        valid = (torch.arange(B, device=diff.device) < n_valid).float()
+        valid = (torch.arange(row0, row0 + B, device=diff.device)
+                 < n_valid).float()
         vmask = valid.reshape((-1,) + (1,) * (diff.dim() - 1))
         if use_mask:
             m = torch.broadcast_to(mask, diff.shape).float() * vmask
@@ -154,6 +163,18 @@ def _make_eval_batch_fn(apply_fn: Callable, stats, use_mask: bool,
                 pred_s, gt_s, m_s)
 
     return batch_fn
+
+
+def _reduce_over_ranks(out, mesh):
+    """A rank's batch reductions → the global batch's: the sums and
+    histograms summed over the ranks (one collective), the sampled pixels
+    of each row gathered in row order (another)."""
+    sums, samples = out[:7], out[7:]
+    flat = mesh.all_reduce(torch.cat([t.reshape(-1) for t in sums]))
+    summed = [f.view_as(t) for f, t in zip(
+        flat.split([t.numel() for t in sums]), sums)]
+    gathered = mesh.all_gather(torch.stack(samples), dim=1).unbind()
+    return (*summed, *gathered)
 
 
 def balanced_scatter_sample(gt: np.ndarray, pred: np.ndarray,
@@ -195,9 +216,17 @@ def evaluate_model(apply_fn: Callable, model: torch.nn.Module,
     model's device. ``apply_fn(model, x, train=False)`` returns (y, state,
     stats). The tail batch is zero-padded to ``batch_size``; each row's
     scatter sample is drawn with the JAX package's numpy calls in its order,
-    so the same predictions give the same scatter pool."""
-    if mesh is not None or variables_sharding is not None:
-        raise NotImplementedError(MULTI_DEVICE)
+    so the same predictions give the same scatter pool. ``mesh``: the pass
+    data parallel (see the module's docstring); ``batch_size`` must be
+    divisible by its data degree. ``variables_sharding`` (tensor parallel)
+    raises NotImplementedError (item 7b)."""
+    if variables_sharding is not None:
+        raise NotImplementedError(MODEL_PARALLEL)
+    mesh = data_mesh(mesh)
+    if mesh is not None and batch_size % mesh.data:
+        raise ValueError(f"eval batch {batch_size} not divisible by mesh "
+                         f"data degree {mesh.data}")
+    rows = mesh.rows(batch_size) if mesh is not None else slice(None)
     if indices is None:
         _, indices = dataset.train_val_split(train_frac, split_seed)
     dev = _model_device(model)
@@ -224,9 +253,13 @@ def evaluate_model(apply_fn: Callable, model: torch.nn.Module,
         k = min(max(scatter_budget_per_batch // batch_size, 1), row_px)
         sample_idx_np = np.stack([rng.choice(row_px, k, replace=False)
                                   for _ in range(batch_size)])
-        out = batch_fn(model, torch.from_numpy(np.asarray(x_raw)).to(dev),
-                       torch.from_numpy(np.asarray(y_raw)).to(dev),
-                       torch.from_numpy(sample_idx_np).to(dev), n_valid)
+        out = batch_fn(model,
+                       torch.from_numpy(np.asarray(x_raw)[rows]).to(dev),
+                       torch.from_numpy(np.asarray(y_raw)[rows]).to(dev),
+                       torch.from_numpy(sample_idx_np[rows]).to(dev), n_valid,
+                       rows.start or 0)
+        if mesh is not None:
+            out = _reduce_over_ranks(out, mesh)
         s, cs, tn, ta, gh, ph, eh, pred_s, gt_s, m_s = (
             t.cpu().numpy() for t in out)
         sums += s

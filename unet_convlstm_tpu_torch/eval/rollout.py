@@ -32,8 +32,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-MULTI_DEVICE = ("multi-device rollout (mesh=) is not ported yet "
-                "(ROADMAP.md, queue A item 7: multi-device)")
+from ..parallel.mesh import data_mesh
+
 
 
 @torch.inference_mode()
@@ -62,14 +62,41 @@ def rollout_scan(apply_fn: Callable, model, x_seq: torch.Tensor,
                  state: Optional[Dict[str, Any]] = None,
                  mesh=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """The whole sequence in one forward from ``state`` (zero states when
-    None): the same outputs and final state as ``rollout_streaming``."""
-    if mesh is not None:
-        raise NotImplementedError(MULTI_DEVICE)
+    None): the same outputs and final state as ``rollout_streaming``.
+
+    ``mesh`` (``parallel.Mesh`` of D ranks): data parallel, as the JAX
+    rollout shards the batch and its carries over 'data'. Every rank passes
+    the whole batch (and state); each runs its B/D rows, and the outputs and
+    final states are gathered in row order, so every rank returns the
+    one-device result. B must be divisible by D."""
+    mesh = data_mesh(mesh)
     B, T, H, W, _ = x_seq.shape
+    if mesh is not None and B % mesh.data:
+        raise ValueError(f"rollout batch {B} not divisible by mesh data "
+                         f"degree {mesh.data}")
     if state is None:
         state = init_state_fn(B, H, W, device=x_seq.device)
-    y_seq, state, _ = apply_fn(model, x_seq, state=state, train=False)
-    return y_seq, state
+    if mesh is None:
+        y_seq, state, _ = apply_fn(model, x_seq, state=state, train=False)
+        return y_seq, state
+    rows = mesh.rows(B)
+    y_loc, state_loc, _ = apply_fn(model, x_seq[rows],
+                                   state=_map_rows(state, lambda t: t[rows]),
+                                   train=False)
+    return (mesh.all_gather(y_loc),
+            _map_rows(state_loc, lambda t: mesh.all_gather(t)))
+
+
+def _map_rows(tree, fn):
+    """``fn`` applied to every tensor of a recurrent state (dicts, lists
+    and tuples of [B, ...] tensors)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_rows(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_rows(v, fn) for v in tree)
+    return tree
 
 
 @torch.inference_mode()

@@ -101,39 +101,41 @@ class ResNet18Encoder(nn.Module):
 
 
 def _basic_block(blk: BasicBlock, x: torch.Tensor, train: bool,
-                 policy: Policy):
+                 policy: Policy, mesh=None):
     ns: Dict[str, Any] = {}
     # explicit symmetric pads: "SAME" pads (0, 1) under stride 2, torch's
     # resnet (1, 1)
     y = conv2d(x, blk.conv1, stride=blk.stride,
                padding=[(1, 1), (1, 1)], policy=policy)
-    y, ns["bn1"] = batchnorm(blk.bn1, y, train)
+    y, ns["bn1"] = batchnorm(blk.bn1, y, train, mesh=mesh)
     y = torch.relu(y)
     y = conv2d(y, blk.conv2, policy=policy)
-    y, ns["bn2"] = batchnorm(blk.bn2, y, train)
+    y, ns["bn2"] = batchnorm(blk.bn2, y, train, mesh=mesh)
     if blk.downsample is not None:
         sc = conv2d(x, blk.downsample[0], stride=blk.stride,
                     padding="VALID", policy=policy)
-        sc, ns["down_bn"] = batchnorm(blk.downsample[1], sc, train)
+        sc, ns["down_bn"] = batchnorm(blk.downsample[1], sc, train,
+                                      mesh=mesh)
     else:
         sc = x
     return torch.relu(y + sc.to(y.dtype)), ns
 
 
 def resnet18_encoder_apply(enc: ResNet18Encoder, x: torch.Tensor,
-                           train: bool, policy: Policy = DEFAULT_POLICY
+                           train: bool, policy: Policy = DEFAULT_POLICY,
+                           mesh=None
                            ) -> Tuple[List[torch.Tensor], Dict[str, Any]]:
     """x [N, H, W, C] → 5 features at /2, /4, /8, /16, /32 and the new BN
     stats."""
     ns: Dict[str, Any] = {}
     y = conv2d(x, enc.conv1, stride=2, padding=[(3, 3), (3, 3)],
                policy=policy)
-    y, ns["bn1"] = batchnorm(enc.bn1, y, train)
+    y, ns["bn1"] = batchnorm(enc.bn1, y, train, mesh=mesh)
     f1 = torch.relu(y)                                     # /2, 64
     y = max_pool2d(f1, 3, 2, padding=1)                    # /4, -inf pads
     feats = [f1]
     for key, blk in enc.blocks():
-        y, ns[key] = _basic_block(blk, y, train, policy)
+        y, ns[key] = _basic_block(blk, y, train, policy, mesh)
         if key.endswith("_1"):
             feats.append(y)
     return feats, ns
@@ -189,7 +191,7 @@ def _upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 def decoder_apply(dec: UnetDecoder, head: Conv2d,
                   features: List[torch.Tensor], train: bool,
-                  policy: Policy = DEFAULT_POLICY):
+                  policy: Policy = DEFAULT_POLICY, mesh=None):
     ns: Dict[str, Any] = {}
     skips = features[:-1][::-1]  # [/16, /8, /4, /2]
     y = features[-1]
@@ -199,7 +201,7 @@ def decoder_apply(dec: UnetDecoder, head: Conv2d,
             y = torch.cat([y, skips[i].to(y.dtype)], dim=-1)
         # never fused: the JAX decoder does not pass fused=True
         # (unet_convlstm_tpu/models/resnet_unet.py:181-183)
-        y, ns[f"block{i}"] = double_conv(blk, y, train, policy)
+        y, ns[f"block{i}"] = double_conv(blk, y, train, policy, mesh=mesh)
     return conv2d(y, head, policy=policy), ns
 
 
@@ -268,13 +270,14 @@ def resnet_unet_apply(m: PretrainedTemporalUNet, x_seq: torch.Tensor,
                       state: Optional[Dict[str, Any]] = None,
                       train: bool = False,
                       policy: Policy = DEFAULT_POLICY,
-                      use_pallas: bool = False
+                      use_pallas: bool = False, mesh=None
                       ) -> Tuple[torch.Tensor, Dict[str, Any],
                                  Dict[str, Any]]:
     """x_seq [B, T, H, W, in_channels] → (y_seq [B, T, H, W, out],
     new_state, {"encoder", "decoder"} BN stats). H and W must be divisible
     by 32. ``use_pallas`` runs every ConvLSTM's gate update through its
-    kernel."""
+    kernel. ``mesh``: train-mode BatchNorm over the data-parallel global
+    batch."""
     cfg = m.cfg
     B, T = x_seq.shape[0], x_seq.shape[1]
     x_bt = flatten_seq(x_seq)
@@ -283,7 +286,7 @@ def resnet_unet_apply(m: PretrainedTemporalUNet, x_seq: torch.Tensor,
     with torch.no_grad() if frozen else contextlib.nullcontext():
         # frozen: inference-mode BN, whose "new" stats are the running ones
         feats, enc_stats = resnet18_encoder_apply(
-            m.encoder, x_bt, train and not frozen, policy)
+            m.encoder, x_bt, train and not frozen, policy, mesh)
 
     state = state or {}
     new_state: Dict[str, Any] = {}
@@ -297,6 +300,6 @@ def resnet_unet_apply(m: PretrainedTemporalUNet, x_seq: torch.Tensor,
         feats[i] = to_batch_major(out, B, T).to(x_bt.dtype)
 
     y_bt, dec_stats = decoder_apply(m.decoder, m.segmentation_head[0],
-                                    feats, train, policy)
+                                    feats, train, policy, mesh)
     return (unflatten_seq(y_bt, B, T), new_state,
             {"encoder": enc_stats, "decoder": dec_stats})

@@ -113,27 +113,27 @@ def double_convs(m: TemporalUNetDualView) -> Dict[str, DoubleConv]:
 
 
 def _encode(m: TemporalUNetDualView, x_bt, train: bool, policy: Policy,
-            fused: bool):
+            fused: bool, mesh=None):
     """x_bt [T*B, H, W, Cin] → (bottleneck, skips, new BN stats)."""
     ns: Dict[str, Any] = {}
-    x0, ns["inc"] = double_conv(m.inc, x_bt, train, policy, fused)
-    x1, ns["down1"] = down(m.down1, x0, train, policy, fused)
-    x2, ns["down2"] = down(m.down2, x1, train, policy, fused)
-    x3, ns["down3"] = down(m.down3, x2, train, policy, fused)
-    xb, ns["bottleneck"] = down(m.bottleneck, x3, train, policy, fused)
+    x0, ns["inc"] = double_conv(m.inc, x_bt, train, policy, fused, mesh)
+    x1, ns["down1"] = down(m.down1, x0, train, policy, fused, mesh)
+    x2, ns["down2"] = down(m.down2, x1, train, policy, fused, mesh)
+    x3, ns["down3"] = down(m.down3, x2, train, policy, fused, mesh)
+    xb, ns["bottleneck"] = down(m.bottleneck, x3, train, policy, fused, mesh)
     if m.cfg.use_attention:
         xb = spatial_attention(m.attention, xb, policy)
     return xb, (x3, x2, x1, x0), ns
 
 
 def _decode(m: TemporalUNetDualView, xb_bt, skips_bt, train: bool,
-            policy: Policy, fused: bool):
+            policy: Policy, fused: bool, mesh=None):
     ns: Dict[str, Any] = {}
     x3, x2, x1, x0 = skips_bt
-    d3, ns["up3"] = up(m.up3, xb_bt, x3, train, policy, fused)
-    d2, ns["up2"] = up(m.up2, d3, x2, train, policy, fused)
-    d1, ns["up1"] = up(m.up1, d2, x1, train, policy, fused)
-    d0, ns["up0"] = up(m.up0, d1, x0, train, policy, fused)
+    d3, ns["up3"] = up(m.up3, xb_bt, x3, train, policy, fused, mesh)
+    d2, ns["up2"] = up(m.up2, d3, x2, train, policy, fused, mesh)
+    d1, ns["up1"] = up(m.up1, d2, x1, train, policy, fused, mesh)
+    d0, ns["up0"] = up(m.up0, d1, x0, train, policy, fused, mesh)
     return out_conv(m.outc, d0, policy), ns
 
 
@@ -142,7 +142,7 @@ def temporal_unet_apply(m: TemporalUNetDualView, x_seq: torch.Tensor,
                         train: bool = False,
                         policy: Policy = DEFAULT_POLICY,
                         use_pallas: bool = False,
-                        use_fused_doubleconv: bool = False
+                        use_fused_doubleconv: bool = False, mesh=None
                         ) -> Tuple[torch.Tensor, Dict[str, Any],
                                    Dict[str, Any]]:
     """Forward over a sequence.
@@ -153,13 +153,15 @@ def temporal_unet_apply(m: TemporalUNetDualView, x_seq: torch.Tensor,
     ``use_fused_doubleconv`` the DoubleConvs through the fused conv kernel,
     under the JAX package's flag names. (The JAX ``unroll``, ``remat`` and
     ``flat_layout`` options tune XLA's scan, autodiff and sharding and have
-    no counterpart here yet.)"""
+    no counterpart here yet.) ``mesh`` (``parallel.Mesh``): x_seq is this
+    rank's rows of a data-parallel batch, and train-mode BatchNorm takes
+    the global batch's statistics."""
     cfg = m.cfg
     B, T = x_seq.shape[0], x_seq.shape[1]
     fused = use_fused_doubleconv
 
     x_bt = flatten_seq(x_seq)
-    xb, skips, enc_stats = _encode(m, x_bt, train, policy, fused)
+    xb, skips, enc_stats = _encode(m, x_bt, train, policy, fused, mesh)
 
     state = state or {}
     xb_out_tm, new_temporal = convlstm(
@@ -180,6 +182,6 @@ def temporal_unet_apply(m: TemporalUNetDualView, x_seq: torch.Tensor,
 
     xb_bt = to_batch_major(xb_out_tm, B, T)
     y_bt, dec_stats = _decode(m, xb_bt.to(x_bt.dtype), (x3, x2, x1, x0),
-                              train, policy, fused)
+                              train, policy, fused, mesh)
     y_seq = unflatten_seq(y_bt, B, T)
     return y_seq, new_state, {**enc_stats, **dec_stats}

@@ -55,9 +55,10 @@ class DoubleConv(nn.Module):
 
 
 def double_conv(m: DoubleConv, x: torch.Tensor, train: bool,
-                policy: Policy = DEFAULT_POLICY, fused: bool = False
-                ) -> Tuple[torch.Tensor, Dict[str, BNStats]]:
-    """x [N, H, W, Cin] → (y [N, H, W, Cout], {"bn1", "bn2"} stats)."""
+                policy: Policy = DEFAULT_POLICY, fused: bool = False,
+                mesh=None) -> Tuple[torch.Tensor, Dict[str, BNStats]]:
+    """x [N, H, W, Cin] → (y [N, H, W, Cout], {"bn1", "bn2"} stats).
+    ``mesh``: train-mode BatchNorm over the data-parallel global batch."""
     if fused and m.conv1.weight.is_floating_point():
         # integer (int8) weights take the unfused path, as in the JAX
         # package. conv2 (c1 -> c2, with the BN1 prologue) must be at least
@@ -69,12 +70,13 @@ def double_conv(m: DoubleConv, x: torch.Tensor, train: bool,
         c1, c2 = m.conv1.weight.shape[0], m.conv2.weight.shape[0]
         if min(c1, c2) >= 16 and kernel_supports(c1, c2, x_c.dtype):
             conv1_fused = cin >= 16 and kernel_supports(cin, c1, x_c.dtype)
-            return _double_conv_fused(m, x_c, train, policy, conv1_fused)
+            return _double_conv_fused(m, x_c, train, policy, conv1_fused,
+                                      mesh)
     y = conv2d(x, _conv_module(m.conv1), policy=policy)
-    y, s1 = batchnorm(m.bn1, y, train)
+    y, s1 = batchnorm(m.bn1, y, train, mesh=mesh)
     y = torch.relu(y)
     y = conv2d(y, _conv_module(m.conv2), policy=policy)
-    y, s2 = batchnorm(m.bn2, y, train)
+    y, s2 = batchnorm(m.bn2, y, train, mesh=mesh)
     y = torch.relu(y)
     return y, {"bn1": s1, "bn2": s2}
 
@@ -86,7 +88,7 @@ def _conv_module(c: nn.Module) -> nn.Module:
 
 
 def _double_conv_fused(m: DoubleConv, x_c: torch.Tensor, train: bool,
-                       policy: Policy, conv1_fused: bool):
+                       policy: Policy, conv1_fused: bool, mesh=None):
     """conv1 reduces the BN1 sums in its epilogue; conv2 applies BN1's
     normalize+ReLU as its prologue and reduces the BN2 sums; only the final
     normalize+ReLU runs outside the kernel, in the compute dtype. In eval
@@ -103,10 +105,12 @@ def _double_conv_fused(m: DoubleConv, x_c: torch.Tensor, train: bool,
             y1f = y1.float()
             s1 = y1f.sum(dim=(0, 1, 2))
             q1 = (y1f * y1f).sum(dim=(0, 1, 2))
-    inv1, shift1, new_s1 = batchnorm_from_sums(m.bn1, s1, q1, n_pix, train)
+    inv1, shift1, new_s1 = batchnorm_from_sums(m.bn1, s1, q1, n_pix, train,
+                                               mesh=mesh)
     y2, s2, q2 = fused_conv3x3(y1, policy.cast_param(m.conv2.weight),
                                m.conv2.bias, pre_inv=inv1, pre_shift=shift1)
-    inv2, shift2, new_s2 = batchnorm_from_sums(m.bn2, s2, q2, n_pix, train)
+    inv2, shift2, new_s2 = batchnorm_from_sums(m.bn2, s2, q2, n_pix, train,
+                                               mesh=mesh)
     y = torch.relu(y2 * inv2.to(y2.dtype) + shift2.to(y2.dtype))
     return y, {"bn1": new_s1, "bn2": new_s2}
 
@@ -124,8 +128,9 @@ class Down(nn.Module):
 
 
 def down(m: Down, x: torch.Tensor, train: bool,
-         policy: Policy = DEFAULT_POLICY, fused: bool = False):
-    return double_conv(m.net[1], max_pool2d(x, 2), train, policy, fused)
+         policy: Policy = DEFAULT_POLICY, fused: bool = False, mesh=None):
+    return double_conv(m.net[1], max_pool2d(x, 2), train, policy, fused,
+                       mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +146,7 @@ class Up(nn.Module):
 
 
 def up(m: Up, x_deep: torch.Tensor, x_skip: torch.Tensor, train: bool,
-       policy: Policy = DEFAULT_POLICY, fused: bool = False):
+       policy: Policy = DEFAULT_POLICY, fused: bool = False, mesh=None):
     """x_deep: coarse feature to upsample; x_skip: encoder skip (NHWC)."""
     x1 = conv_transpose2d(x_deep, m.up, stride=2, policy=policy)
     # center-pad x1 to the skip: dh//2 on top, dh - dh//2 on the bottom
@@ -150,7 +155,7 @@ def up(m: Up, x_deep: torch.Tensor, x_skip: torch.Tensor, train: bool,
     if dh or dw:
         x1 = F.pad(x1, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
     x = torch.cat([x_skip, x1.to(x_skip.dtype)], dim=-1)
-    y, s = double_conv(m.conv, x, train, policy, fused)
+    y, s = double_conv(m.conv, x, train, policy, fused, mesh)
     return y, {"conv": s}
 
 

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.dtypes import DEFAULT_POLICY, Policy, full_fp32
+from ..parallel.mesh import global_sum
 
 Padding = Union[str, int, Sequence[Tuple[int, int]]]
 
@@ -217,12 +218,21 @@ def _running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
 def batchnorm_from_sums(bn: nn.BatchNorm2d, total: Optional[torch.Tensor],
                         total_sq: Optional[torch.Tensor], n: int,
                         train: bool, momentum: float = 0.1,
-                        eps: float = 1e-5):
+                        eps: float = 1e-5, mesh=None):
     """BN affine (inv, shift) and the new running stats from per-channel
     f32 sums, for when the reduction was fused elsewhere (the fused conv
     kernel's epilogue). Returns (inv, shift, (mean, var)); in eval mode the
-    sums are not read and may be None."""
+    sums are not read and may be None.
+
+    ``mesh`` (``parallel.Mesh``): the sums are this rank's rows of a
+    data-parallel batch; in train mode they are summed over the ranks (and
+    n with them: every rank holds as many rows), so the statistics and
+    their gradients are the global batch's, as under the JAX package's
+    ``jit`` with a 'data'-sharded batch."""
     if train:
+        if mesh is not None and mesh.distributed:
+            both = global_sum(torch.stack([total, total_sq]), mesh)
+            total, total_sq, n = both[0], both[1], n * mesh.data
         mean = total / n
         mean_sq = total_sq / n
         var = torch.clamp_min(mean_sq - mean * mean, 0.0)
@@ -236,15 +246,20 @@ def batchnorm_from_sums(bn: nn.BatchNorm2d, total: Optional[torch.Tensor],
 
 
 def batchnorm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool,
-              momentum: float = 0.1, eps: float = 1e-5):
+              momentum: float = 0.1, eps: float = 1e-5, mesh=None):
     """x: NHWC. Returns (y, (mean, var)). Statistics in f32 (the square in
     x's dtype, as ``lax.square`` in the JAX package); the normalization
-    runs in x's dtype."""
+    runs in x's dtype. ``mesh``: in train mode the statistics are the
+    global batch's, the ranks' means averaged (every rank holds as many
+    rows), as ``batchnorm_from_sums`` does."""
     if train:
         mean = x.float().mean(dim=(0, 1, 2))
         mean_sq = (x * x).float().mean(dim=(0, 1, 2))
-        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
         n = x.shape[0] * x.shape[1] * x.shape[2]
+        if mesh is not None and mesh.distributed:
+            both = global_sum(torch.stack([mean, mean_sq]), mesh) / mesh.data
+            mean, mean_sq, n = both[0], both[1], n * mesh.data
+        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
         new_stats = _running_stats(bn, mean, var, n, momentum)
     else:
         mean, var = bn.running_mean, bn.running_var

@@ -11,7 +11,9 @@ The halo of the SAME padding is zero in z, not in x. The kernel
 (``csrc/conv3x3_fused.cu``) is an implicit GEMM that applies the prologue
 to x once it is staged and reduces the stats in its epilogue, so a
 DoubleConv's second conv reads the first one's raw output once and nothing
-else. ``plan`` picks its route from the shape alone, before the launch:
+else. The sums add in a fixed order (each row of blocks writes its
+partials, a last pass adds them in block order), so y and the sums are the
+same bits on every run, as the TPU kernel's grid-ordered sums are. ``plan`` picks its route from the shape alone, before the launch:
 the Hopper route (a TMA/cp.async ring feeding ``wgmma``, split K where the
 output tiles are fewer than the SMs) for the bf16 shapes it takes, the
 generic route (WMMA or FMA tiles) for f32 and the rest.
@@ -139,9 +141,9 @@ def _lib():
     if lib.conv3x3_fused_fwd.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.conv3x3_fused_fwd.restype = I
-        lib.conv3x3_fused_fwd.argtypes = [P] * 8 + [I] * 7 + [P]
+        lib.conv3x3_fused_fwd.argtypes = [P] * 9 + [I] * 7 + [P]
         lib.conv3x3_fused_wgmma.restype = I
-        lib.conv3x3_fused_wgmma.argtypes = [P, P, I] + [P] * 8 + [I] * 9 + [
+        lib.conv3x3_fused_wgmma.argtypes = [P, P, I] + [P] * 9 + [I] * 9 + [
             P]
     return lib
 
@@ -190,12 +192,16 @@ def _launch(x, w, b, pre_inv, pre_shift):
     dev = x.device
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # each row of 128-pixel blocks writes its per-channel partials to its
+    # own column; the kernel's last pass adds them in a fixed order
+    part = torch.empty((2, cout, _cdiv(n * h * wd, BM)), dtype=torch.float32,
+                       device=dev)
     inv_ptr = pre_inv.data_ptr() if prologue else None
     shift_ptr = pre_shift.data_ptr() if prologue else None
     if p.route == "wgmma":
         # one call: the weight's K-major copy and the zeroed sums (one prep
-        # kernel, which also runs on an empty batch), the main kernel, and
-        # the split-K pass where splits > 1
+        # kernel, which also runs on an empty batch), the main kernel, the
+        # split-K pass where splits > 1, and the sums' finishing pass
         if w.dtype not in _DTYPES or not w.is_contiguous():
             w = w.to(x.dtype).contiguous()
         wt = torch.empty((cout, 9 * cin), dtype=torch.bfloat16, device=dev)
@@ -207,17 +213,20 @@ def _launch(x, w, b, pre_inv, pre_shift):
             x.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16),
             b.data_ptr(), inv_ptr, shift_ptr, wt.data_ptr(), y.data_ptr(),
             s.data_ptr(), q.data_ptr(), None if ws is None else ws.data_ptr(),
-            n, h, wd, cin, cout, int(prologue), p.bn, p.bk, p.splits, stream)
+            part.data_ptr(), n, h, wd, cin, cout, int(prologue), p.bn, p.bk,
+            p.splits, stream)
     else:
         # the kernel's K-major weight: row (3*kh + kw)*Cin + ci, column co
         wk = w.to(x.dtype).permute(2, 3, 1, 0).reshape(9 * cin,
                                                        cout).contiguous()
+        # zeros: an empty batch launches nothing
         s = torch.zeros(cout, dtype=torch.float32, device=dev)
         q = torch.zeros(cout, dtype=torch.float32, device=dev)
         rc = lib.conv3x3_fused_fwd(
             x.data_ptr(), wk.data_ptr(), b.data_ptr(), inv_ptr, shift_ptr,
-            y.data_ptr(), s.data_ptr(), q.data_ptr(), n, h, wd, cin, cout,
-            int(prologue), int(x.dtype == torch.bfloat16), stream)
+            y.data_ptr(), s.data_ptr(), q.data_ptr(), part.data_ptr(), n, h,
+            wd, cin, cout, int(prologue), int(x.dtype == torch.bfloat16),
+            stream)
     launches += 1
     launches_by_route[p.route] += 1
     if rc != 0:

@@ -9,6 +9,15 @@
 
 Predictions and targets are [B, T, H, W, C] (NHWC); masks broadcast. All
 math in f32 whatever the model's compute dtype.
+
+With a data-parallel ``mesh``, each rank holds its rows of the global batch
+and ``compute_loss`` returns the rank's share of the global loss: its own
+numerators over the global denominators (the mask and sample-weight sums
+summed over the ranks; a plain mean is the rank's mean over the data
+degree, every rank holding as many rows). The shares add up to the loss of
+the global batch, as the JAX package computes it under ``jit``; their sum
+over the ranks is the reported loss, and the sum of the ranks' gradients
+its gradient.
 """
 
 from __future__ import annotations
@@ -29,12 +38,18 @@ def compute_loss(y_pred: torch.Tensor, y: torch.Tensor,
                  mask: Optional[torch.Tensor] = None,
                  use_mask: bool = True,
                  grad_weight: float = 0.005,
-                 sample_weight: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+                 sample_weight: Optional[torch.Tensor] = None,
+                 mesh=None) -> torch.Tensor:
     """``sample_weight``: optional [B] 0/1 vector that excludes padded rows
-    of a tail batch; all ones or None gives the plain formulas."""
+    of a tail batch; all ones or None gives the plain formulas. ``mesh``
+    (``parallel.Mesh``): the rank's share of the global batch's loss."""
     y_pred = y_pred.float()
     y = y.float()
+    ranks = mesh.data if mesh is not None and mesh.distributed else None
+
+    def total(t):
+        # a denominator over the global batch (no gradient flows into it)
+        return mesh.all_reduce(t) if ranks else t
 
     sw = None
     if sample_weight is not None:
@@ -45,8 +60,8 @@ def compute_loss(y_pred: torch.Tensor, y: torch.Tensor,
 
     def _mean(t):
         if sw is None:
-            return t.mean()
-        n = torch.broadcast_to(sw, t.shape).sum()
+            return t.mean() / ranks if ranks else t.mean()
+        n = total(torch.broadcast_to(sw, t.shape).sum())
         return (t * sw).sum() / (n + 1e-8)
 
     if use_mask and mask is not None:
@@ -54,7 +69,7 @@ def compute_loss(y_pred: torch.Tensor, y: torch.Tensor,
         if sw is not None:
             m = m * sw
         num = (abs_diff * m * weight).sum()
-        den = (m * weight).sum() + 1e-8
+        den = total((m * weight).sum()) + 1e-8
         weighted_l1 = num / den
     else:
         weighted_l1 = _mean(abs_diff * weight)
@@ -72,7 +87,8 @@ def compute_loss(y_pred: torch.Tensor, y: torch.Tensor,
         mask_c = mask[..., :h_min, :w_min, :].float()
         if sw is not None:
             mask_c = mask_c * sw
-        grad_loss = (grad_diff * mask_c).sum() / (mask_c.sum() + 1e-8)
+        grad_loss = ((grad_diff * mask_c).sum()
+                     / (total(mask_c.sum()) + 1e-8))
     else:
         grad_loss = _mean(grad_diff)
 

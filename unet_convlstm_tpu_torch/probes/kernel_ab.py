@@ -5,6 +5,8 @@ turn.
 
     python -m unet_convlstm_tpu_torch.probes.kernel_ab [--kernels k1,k7,k8]
         [--parent CHECKOUT]
+    python -m unet_convlstm_tpu_torch.probes.kernel_ab \
+        --kernels k2,step,renders --parent CHECKOUT
 
 K1 forward: the shipped build (sigmoids from ``__expf`` and a fast
 reciprocal) against the same source with a precise ``expf`` and divide, at
@@ -31,14 +33,24 @@ route, at every distinct shape of the two int8 paths (chip_smoke.py's
 K8_CUSTOM and K8_RESNET), bit-equal checked and timed in the order fused,
 separate, separate, fused, with the winner per shape and the sums a pass.
 
-``--kernels`` picks among k1, k7 and k8 (all by default). ``--parent``:
-then chip_smoke.py's checks of the chosen kernels from CHECKOUT (P) and
-from this checkout (C), in the order P, C, C, P, each in its own process:
-K1 forward's sums a request and a step and K7's times; K8's sums a custom
-int8 forward and a resnet request (its "ms", and where the tree reports
-them its int8-input and dynamic times), and the seeded base_ch-64 int8
-forward (B=8, T=12, 128x128) dynamic, calibrated and bf16, as phase 13
-builds it.
+``--kernels`` picks among k1, k7 and k8 (all by default), and k2, step and
+renders, which have no alternative here and run with ``--parent`` only.
+``--parent``: then chip_smoke.py's checks of the chosen kernels from
+CHECKOUT (P) and from this checkout (C), in the order P, C, C, P, each in
+its own process: K1 forward's sums a request and a step and K7's times;
+K8's sums a custom int8 forward and a resnet request (its "ms", and where
+the tree reports them its int8-input and dynamic times), and the seeded
+base_ch-64 int8 forward (B=8, T=12, 128x128) dynamic, calibrated and bf16,
+as phase 13 builds it; K2's sums a request (B=4, T=4, 128x128, base_ch 64)
+and a step (B=64, T=10, 64x64, base_ch 32) and its milliseconds at each
+training shape; ``step``: the training step's p50 and p90 over chip_smoke's
+20 timed steps of the benchmark's configuration (bf16, the kernels on),
+under the tree's own training settings (``core.determinism`` where the
+tree has it), and where it has them, in the same process, without them,
+with them and the NaN fill of new tensors on, and with them again
+(``train_step_split``); ``renders``: the wall seconds of five ``gen-renders``
+runs (stage B's deterministic renderer) on chip_smoke's two production
+patches (200 layers, 128x128) and a 2-view overpass CSV at 256x256.
 
 Every line printed is one JSON object; ``ab`` lines hold the readings. Run
 from the root of the checkout, on a card.
@@ -373,6 +385,54 @@ gen = torch.Generator(device=s.DEV).manual_seed(s.SEED)
 """, "k1": """
 s.check_k1(gen, s.K1_LEVELS, s.B, "request")
 s.check_k1(gen, s.K1_TRAIN_LEVELS, s.TB, "step")
+""", "k2": """
+s.check_k2(gen, s.K2_CONVS, s.B * s.T, "request", serving=False)
+s.check_k2(gen, s.K2_TRAIN_CONVS, s.TB * s.TT, "step", serving=False)
+""", "step": """
+import contextlib
+try:
+    from unet_convlstm_tpu_torch.core.determinism import deterministic
+except ImportError:          # a tree from before the deterministic run
+    deterministic = None
+tr = s._Train()
+opt = tr.fresh()
+steps = {True: tr.step(s.DEFAULT_POLICY, True),
+         False: tr.step(s.DEFAULT_POLICY, False)}
+with deterministic(s.DEV) if deterministic else contextlib.nullcontext():
+    runs, _ = tr.step_times(opt, steps)
+print(json.dumps({"train_step": runs}), flush=True)
+if deterministic:            # where the deterministic settings' cost goes
+    import torch.utils.deterministic as td
+    split = {"no_flags": tr.step_times(opt, steps)[0]}
+    with deterministic(s.DEV):
+        td.fill_uninitialized_memory = True
+        split["with_nan_fill"] = tr.step_times(opt, steps)[0]
+    with deterministic(s.DEV):
+        split["shipped_again"] = tr.step_times(opt, steps)[0]
+    print(json.dumps({"train_step_split": split}), flush=True)
+""", "renders": """
+import contextlib, os, pickle, tempfile, time
+walls = []
+with tempfile.TemporaryDirectory() as w:
+    root = os.path.join(w, "patches")
+    for k in range(1, 7):
+        os.makedirs(os.path.join(root, f"{k:010d}"))
+    os.makedirs(os.path.join(root, f"{7:010d}"))
+    for i, beta in enumerate(s.mc_patches().values()):
+        with open(os.path.join(root, f"{7:010d}", f"sample_{i:03d}.pkl"),
+                  "wb") as f:
+            pickle.dump({"beta_ext": beta}, f)
+    csv = s.synthesize_overpass_csv(os.path.join(w, "overpass.csv"),
+                                    n_times=7, n_satellites=2)
+    for rep in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            s.cli_main(["gen-renders", "--input", root, "--csv", csv,
+                        "--res", str(s.MC_RES), "--output",
+                        os.path.join(w, f"out{rep}")])
+        walls.append(time.perf_counter() - t0)
+print(json.dumps({"gen_renders_s": walls}), flush=True)
 """, "k7": """
 s.check_k7(gen)
 """, "k8": """
@@ -415,15 +475,24 @@ def trees(parent: str, kernels) -> None:
             raise AssertionError(f"run {run} ({tree}) exited "
                                  f"{r.returncode}")
         k1 = {"request": 0.0, "step": 0.0}
-        k7, k8, forward = {}, {}, None
+        k2 = {"request": 0.0, "step": 0.0, "step_shapes": {}}
+        k7, k8, forward, step = {}, {}, None, None
+        split, renders = None, None
         for ln in r.stdout.splitlines():
             obj = json.loads(ln) if ln.startswith("{") else {}
             forward = obj.get("forward_ms", forward)
+            step = obj.get("train_step", step)
+            split = obj.get("train_step_split", split)
+            renders = obj.get("gen_renders_s", renders)
             if obj.get("phase") != "kernel":
                 continue
-            for per in k1:
+            sums = k2 if obj["kernel"] == "conv3x3_fused" else k1
+            for per in ("request", "step"):
                 if f"launches_per_{per}" in obj:
-                    k1[per] += obj["ms"] * obj[f"launches_per_{per}"]
+                    sums[per] += obj["ms"] * obj[f"launches_per_{per}"]
+            if obj["kernel"] == "conv3x3_fused" and "launches_per_step" \
+                    in obj:
+                k2["step_shapes"][str(obj["shape"])] = obj["ms"]
             if obj["kernel"] == "chained_gather" and "reps" in obj:
                 k7[obj["variant"]] = obj["ms"]
             if obj["kernel"] == "conv_int8" and "ms" in obj:
@@ -433,8 +502,10 @@ def trees(parent: str, kernels) -> None:
                         sums[key] = (sums.get(key, 0.0)
                                      + obj[key] * obj["launches_per_pass"])
         emit({"ab": "tree", "tree": tree, "run": run, "root": root,
-              "gate_update_ms": k1, "chained_gather_ms": k7,
-              "conv_int8_ms": k8, "int8_forward_ms": forward})
+              "gate_update_ms": k1, "conv3x3_fused_ms": k2,
+              "chained_gather_ms": k7, "conv_int8_ms": k8,
+              "int8_forward_ms": forward, "train_step": step,
+              "train_step_split": split, "gen_renders_s": renders})
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -443,9 +514,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--parent", default=None,
                     help="a checkout to compare with this one, P, C, C, P")
     ap.add_argument("--kernels", default="k1,k7,k8",
-                    help="a comma-separated choice of k1, k7 and k8")
+                    help="a comma-separated choice of k1, k2, k7, k8, "
+                         "step and renders (k2, step and renders: with "
+                         "--parent only)")
     args = ap.parse_args(argv)
-    kernels = [k for k in ("k1", "k7", "k8")
+    kernels = [k for k in ("k1", "k2", "k7", "k8", "step", "renders")
                if k in args.kernels.split(",")]
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device is available", file=sys.stderr)

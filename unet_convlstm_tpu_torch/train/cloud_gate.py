@@ -317,9 +317,22 @@ def run_cloud_gate(work_dir: str, cfg: Optional[CloudGateConfig] = None,
 
     Runs on the card unless ``device`` names another; ``result["stage_s"]``
     holds the wall time of each stage that ran (``patches``, or ``A``
-    with ``from_nc``; ``B``, ``C``, ``D``, ``train``).
+    with ``from_nc``; ``B``, ``C``, ``D``, ``train``). The whole gate runs
+    under ``core.determinism.deterministic``, as the JAX gate is the
+    reproducible version of the golden run: the same config gives the same
+    bits, and the same verdict, on every run on the card.
     """
+    from ..core.determinism import deterministic
     from ..core.dtypes import resolve_device
+
+    dev = resolve_device(device)
+    with deterministic(dev):
+        return _run_cloud_gate(work_dir, cfg, out_json, verbose,
+                               reuse_dataset, dev)
+
+
+def _run_cloud_gate(work_dir, cfg, out_json, verbose, reuse_dataset,
+                    dev) -> dict:
     from ..data.npz_dataset import NPZSequenceDataset
     from ..datagen.overpass import synthesize_overpass_csv
     from ..datagen.render_batch import render_dataset
@@ -332,7 +345,6 @@ def run_cloud_gate(work_dir: str, cfg: Optional[CloudGateConfig] = None,
     if cfg.model_family not in ("custom", "resnet18"):
         raise ValueError(f"unknown model_family {cfg.model_family!r} "
                          "(known: custom, resnet18)")
-    dev = resolve_device(device)
     t0 = time.time()
     stage_s = {}
     os.makedirs(work_dir, exist_ok=True)

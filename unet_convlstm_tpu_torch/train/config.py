@@ -10,9 +10,12 @@ Keys the port accepts with another meaning, or none yet:
   as ``bench`` and ``serve`` do; their plain versions serve the CPU only.
 * ``flat_layout``, ``unroll``, ``remat``: XLA's sequence-flatten layout,
   scan unroll and ``jax.checkpoint``. Accepted and without effect yet
-  (ROADMAP.md, queue A item 7).
-* ``mesh_data`` > 1, ``mesh_model`` > 1 and ``zero1``: multi-device
-  training, which raises (item 7). ``mesh_data`` None means the one card.
+  (ROADMAP.md, queue A item 7c).
+* ``mesh_data`` > 1: data-parallel training over that many processes,
+  launched with torchrun (one process a card, or CPU processes), with
+  ``zero1`` splitting the AdamW moments over them. ``mesh_data`` None or 1
+  means one process. ``mesh_model`` > 1 (tensor parallel) raises (item
+  7b).
 """
 
 from __future__ import annotations
@@ -20,9 +23,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
-MULTI_DEVICE = ("multi-device training is not ported to "
-                "unet_convlstm_tpu_torch yet (ROADMAP.md, queue A item 7: "
-                "multi-device)")
+TENSOR_PARALLEL = ("tensor-parallel training (mesh_model > 1) is not "
+                   "ported to unet_convlstm_tpu_torch yet (ROADMAP.md, "
+                   "queue A item 7b)")
 
 
 @dataclasses.dataclass
@@ -127,9 +130,9 @@ class TrainConfig:
         return TrainConfig.from_dict(d)
 
 
-def check_single_device(cfg: TrainConfig) -> None:
-    """Raise for the multi-device keys the port cannot run yet."""
-    if (cfg.mesh_data or 1) > 1 or cfg.mesh_model > 1 or cfg.zero1:
+def check_mesh(cfg: TrainConfig) -> None:
+    """Raise for the mesh keys the port cannot run yet (tensor
+    parallelism); data parallelism and ZeRO-1 run."""
+    if cfg.mesh_model > 1:
         raise NotImplementedError(
-            f"{MULTI_DEVICE}: mesh_data={cfg.mesh_data}, "
-            f"mesh_model={cfg.mesh_model}, zero1={cfg.zero1}")
+            f"{TENSOR_PARALLEL}: mesh_model={cfg.mesh_model}")

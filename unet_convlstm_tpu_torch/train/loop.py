@@ -20,6 +20,17 @@ checkpoint, an optional periodic ``_last`` checkpoint and the final one.
 * Unlike the JAX loop (ADVICE.md r5 "medium", its ``loop.py:447``), the
   periodic ``_last`` checkpoint records the best val loss after this
   epoch's best-val update.
+* The run computes under ``core.determinism.deterministic``: cuDNN and
+  torch's kernels in their deterministic modes, so a run on the card is
+  the same bits each time (the hand-written kernels add in fixed orders).
+* ``mesh_data`` > 1: data parallel over a ``torch.distributed`` group of
+  that many processes (torchrun's, or ``group``). Every rank reads the
+  global batches in one card's order and takes its rows; the steps reduce
+  over the group (train/steps.py), so the history and the checkpoints are
+  one card's, up to the order of the sums. ``zero1`` splits the AdamW
+  moments over the ranks. Only rank 0 writes checkpoints, history.csv and
+  the log; every rank runs the same epochs, decisions included, since each
+  reads the same reduced numbers.
 """
 
 from __future__ import annotations
@@ -32,13 +43,16 @@ import warnings
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from ..core.determinism import deterministic
 from ..core.dtypes import resolve_device
 from ..data.npz_dataset import NPZSequenceDataset
 from ..data.pipeline import SequenceLoader, pad_batch, prefetch_to_device
 from ..models.registry import build_model
+from ..parallel.mesh import make_mesh
 from .checkpoint import restore_checkpoint, save_checkpoint
-from .config import TrainConfig, check_single_device
+from .config import TrainConfig, check_mesh
 from .metrics import MetricSums, metric_sums_finalize, metric_sums_init
 from .optim import (ReduceLROnPlateau, make_optimizer, nonfinite_step_count,
                     set_learning_rate)
@@ -171,19 +185,50 @@ class _Profiler:
             self.log(f"[profiler] stop failed: {e}")
 
 
+def _run_mesh(cfg: TrainConfig, group):
+    """The data-parallel mesh of the run, or None for one process."""
+    check_mesh(cfg)
+    n_data = cfg.mesh_data or 1
+    world = os.environ.get("WORLD_SIZE")
+    if world is not None and int(world) != n_data:
+        raise ValueError(f"WORLD_SIZE={world} but mesh_data="
+                         f"{cfg.mesh_data}: launch one process a data rank "
+                         f"(torchrun --nproc-per-node {n_data})")
+    if group is None and n_data > 1:
+        if not dist.is_initialized():
+            raise ValueError(f"mesh_data={n_data} needs a torch.distributed "
+                             f"process group of {n_data} ranks: launch the "
+                             f"run under torchrun")
+        group = dist.group.WORLD
+    return None if group is None else make_mesh(n_data, group=group)
+
+
 def fit(cfg: TrainConfig, dataset: Optional[NPZSequenceDataset] = None,
         epochs: Optional[int] = None, verbose: bool = True,
         profile_dir: Optional[str] = None,
-        resume_from: Optional[str] = None, device=None) -> Dict[str, Any]:
+        resume_from: Optional[str] = None, device=None,
+        group=None) -> Dict[str, Any]:
     """Train per config; returns {'model', 'optimizer', 'history',
-    'best_val_loss', 'apply_fn', 'dataset'}.
+    'best_val_loss', 'apply_fn', 'dataset', 'mesh'}.
 
     ``resume_from``: a training checkpoint (``.pt``) — restores weights, BN
     stats, optimizer, scheduler and guard state and continues from the
-    saved epoch. Runs on the card unless ``device`` names another."""
-    log = print if verbose else (lambda *a, **k: None)
+    saved epoch (at the same data degree). Runs on the card unless
+    ``device`` names another. ``group``: the process group of a
+    data-parallel run (``mesh_data`` ranks; torchrun's default group when
+    None)."""
     dev = resolve_device(device)
-    check_single_device(cfg)
+    mesh = _run_mesh(cfg, group)
+    with deterministic(dev):
+        return _fit(cfg, dataset, epochs, verbose, profile_dir, resume_from,
+                    dev, mesh)
+
+
+def _fit(cfg, dataset, epochs, verbose, profile_dir, resume_from, dev,
+         mesh) -> Dict[str, Any]:
+    rank0 = mesh is None or mesh.rank == 0
+    log = print if verbose and rank0 else (lambda *a, **k: None)
+    n_data = mesh.data if mesh is not None else 1
 
     if dataset is None:
         dataset = NPZSequenceDataset(cfg.npz_path, min_y=cfg.min_y,
@@ -197,11 +242,19 @@ def fit(cfg: TrainConfig, dataset: Optional[NPZSequenceDataset] = None,
         raise ValueError(
             f"empty validation split (train_frac={cfg.train_frac}, "
             f"N={len(dataset)}) — lower train_frac or add data")
+    if cfg.batch_size % n_data:
+        raise ValueError(f"batch {cfg.batch_size} not divisible by "
+                         f"data-parallel degree {n_data}")
     if cfg.accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {cfg.accum_steps}")
     if cfg.batch_size % cfg.accum_steps:
         raise ValueError(f"batch {cfg.batch_size} not divisible by "
                          f"accum_steps {cfg.accum_steps}")
+    if (cfg.batch_size // cfg.accum_steps) % n_data:
+        raise ValueError(
+            f"microbatch {cfg.batch_size // cfg.accum_steps} "
+            f"(batch {cfg.batch_size} / accum_steps {cfg.accum_steps}) not "
+            f"divisible by data-parallel degree {n_data}")
     if cfg.guard_snapshot not in ("device", "host"):
         raise ValueError(f"guard_snapshot must be 'device' or 'host', "
                          f"got {cfg.guard_snapshot!r}")
@@ -225,12 +278,14 @@ def fit(cfg: TrainConfig, dataset: Optional[NPZSequenceDataset] = None,
     opt = make_optimizer(model.named_parameters(), cfg.lr, cfg.weight_decay,
                          cfg.grad_clip,
                          trainable_mask=_trainable_mask(model, cfg.model),
-                         skip_nonfinite=cfg.skip_nonfinite_updates)
+                         skip_nonfinite=cfg.skip_nonfinite_updates,
+                         mesh=mesh, zero1=cfg.zero1)
     train_step = make_train_step(
         apply_fn, dataset.stats, use_mask=cfg.use_mask,
         guard_nonfinite_stats=cfg.skip_nonfinite_updates is not None,
-        accum_steps=cfg.accum_steps)
-    eval_step = make_eval_step(apply_fn, dataset.stats, use_mask=cfg.use_mask)
+        accum_steps=cfg.accum_steps, mesh=mesh)
+    eval_step = make_eval_step(apply_fn, dataset.stats, use_mask=cfg.use_mask,
+                               mesh=mesh)
     scheduler = ReduceLROnPlateau(cfg.lr, cfg.plateau_factor,
                                   cfg.plateau_patience, min_lr=cfg.min_lr)
     guard = None
@@ -271,9 +326,16 @@ def fit(cfg: TrainConfig, dataset: Optional[NPZSequenceDataset] = None,
     train_loader.epoch = start_epoch - 1
     val_loader = SequenceLoader(dataset, val_idx, cfg.batch_size,
                                 shuffle=False)
+    rows = mesh.rows(cfg.batch_size) if mesh is not None else slice(None)
+
+    def local(batches):
+        """This rank's rows of each global batch (numpy, before the copy
+        to the device)."""
+        for x_np, y_np in batches:
+            yield x_np[rows], y_np[rows]
 
     tb_writer = None
-    if cfg.tensorboard_dir:
+    if cfg.tensorboard_dir and rank0:
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -289,11 +351,14 @@ def fit(cfg: TrainConfig, dataset: Optional[NPZSequenceDataset] = None,
                  "epoch": epoch, "scheduler": sched_state}
         if guard_state is not None:
             extra["guard"] = guard_state
+        if not rank0:
+            return
         save_checkpoint(
             os.path.join(cfg.checkpoint_dir, f"{model_name}_{tag}.pt"),
             model_state, _checkpoint_config(cfg), norm_dict, **extra)
 
     def save_now(tag, epoch):
+        # every rank: the optimizer's state_dict gathers ZeRO-1's moments
         save(tag, model.state_dict(), opt.state_dict(), epoch,
              scheduler.state_dict(),
              guard.state_dict() if guard is not None else None)
@@ -302,7 +367,7 @@ def fit(cfg: TrainConfig, dataset: Optional[NPZSequenceDataset] = None,
     n_epochs = epochs if epochs is not None else cfg.epochs
     last_completed = start_epoch - 1   # advanced per healthy epoch
     global_step = 0
-    profiler = _Profiler(profile_dir, dev, log)
+    profiler = _Profiler(profile_dir if rank0 else None, dev, log)
 
     try:
         for epoch in range(start_epoch, n_epochs + 1):
@@ -310,12 +375,13 @@ def fit(cfg: TrainConfig, dataset: Optional[NPZSequenceDataset] = None,
             t0 = time.time()
             loss_sum = torch.zeros((), device=dev)
             sums, n_seen = metric_sums_init(dev), 0
-            for x_raw, y_raw in prefetch_to_device(train_loader, 2, dev):
+            for x_raw, y_raw in prefetch_to_device(local(train_loader), 2,
+                                                   dev):
                 profiler.step(global_step)
                 loss, s = train_step(model, opt, x_raw, y_raw)
-                loss_sum = loss_sum + loss * x_raw.shape[0]
+                loss_sum = loss_sum + loss * x_raw.shape[0] * n_data
                 sums = _add_sums(sums, s)
-                n_seen += x_raw.shape[0]
+                n_seen += x_raw.shape[0] * n_data
                 global_step += 1
             if not n_seen:
                 raise ValueError(
@@ -331,6 +397,7 @@ def fit(cfg: TrainConfig, dataset: Optional[NPZSequenceDataset] = None,
             sums, n_seen = metric_sums_init(dev), 0
             for x_np, y_np in val_loader:
                 x_np, y_np, n_real = pad_batch(x_np, y_np, cfg.batch_size)
+                x_np, y_np = x_np[rows], y_np[rows]
                 loss, s = eval_step(model, torch.from_numpy(x_np).to(dev),
                                     torch.from_numpy(y_np).to(dev), n_real)
                 loss_sum = loss_sum + loss * n_real
@@ -373,7 +440,7 @@ def fit(cfg: TrainConfig, dataset: Optional[NPZSequenceDataset] = None,
                            "train_loss": tr_loss, "val_loss": val_loss,
                            "train_time_s": tr_time, "guard_event": reason}
                     history.append(row)
-                    if cfg.checkpoint_dir:
+                    if cfg.checkpoint_dir and rank0:
                         _append_history_csv(cfg.checkpoint_dir, row,
                                             "guard_events.csv")
                     log(f"Epoch {epoch}/{n_epochs}: GUARD — {reason}; "
@@ -393,7 +460,7 @@ def fit(cfg: TrainConfig, dataset: Optional[NPZSequenceDataset] = None,
             if cfg.skip_nonfinite_updates is not None:
                 row["nonfinite_steps"] = nonfinite_step_count(opt)
             history.append(row)
-            if cfg.checkpoint_dir:
+            if cfg.checkpoint_dir and rank0:
                 _append_history_csv(cfg.checkpoint_dir, row)
             if tb_writer is not None:
                 for k, v in row.items():
@@ -436,4 +503,4 @@ def fit(cfg: TrainConfig, dataset: Optional[NPZSequenceDataset] = None,
             f"{n_epochs}); leaving the existing _last checkpoint alone")
     return {"model": model, "optimizer": opt, "history": history,
             "best_val_loss": best_val, "apply_fn": apply_fn,
-            "dataset": dataset}
+            "dataset": dataset, "mesh": mesh}
