@@ -149,6 +149,21 @@ non-zero:
               Multi-rank NCCL is not run (one card): unverified. The two
               ranks' step times share one card and are no data-parallel
               speed.
+18. tp      — tensor parallelism on the one card: K2 against its plain
+              version at every Cout/2 shape of a rank's step (64 and 32
+              rows), timed; then gloo ranks spawned on cuda:0 at a (data 1,
+              model 2) and a (data 2, model 2) mesh, each conv kernel and
+              its AdamW moments split by output channel over the model
+              ranks (the JAX rule), run three bf16 and three f32 steps of
+              the benchmark's configuration against one process, each step
+              from the same state (ZeRO-1 on top at data 2, bit-equal to
+              replicated moments); the replicated leaves and the gathered
+              shards the same bits on every rank; K1 forward, backward and
+              K2 launches per rank per step exact, K2 on the wgmma route;
+              ``evaluate_model`` with ``variables_sharding`` and
+              ``rollout_scan`` against one process; gloo's CUDA support on
+              the grid's groups. The ranks' step times share one card and
+              are no tensor-parallel speed; multi-rank NCCL is unverified.
 
 Phase 2 also holds the gate update forward (K1) where its vector route does
 not go (C = 12, a gates view 2 bytes off a 16-byte boundary), with f32
@@ -191,6 +206,7 @@ import datetime
 import functools
 import csv
 import glob
+import hashlib
 import http.client
 import importlib.util
 import io
@@ -243,7 +259,9 @@ from unet_convlstm_tpu_torch.ops.normalize import (NormStats, compute_mask,
                                                    normalize_x, normalize_y)
 from unet_convlstm_tpu_torch.ops.quant import (calibrate_tree,
                                                quant_sites, quantize_model)
-from unet_convlstm_tpu_torch.parallel.mesh import make_mesh
+from unet_convlstm_tpu_torch.parallel.mesh import MeshRules, make_mesh
+from unet_convlstm_tpu_torch.parallel.tensor import (full_state_dict,
+                                                     shard_model)
 from unet_convlstm_tpu_torch.probes import bn_kernel_proto, probe_gather
 from unet_convlstm_tpu_torch.serve import StreamingPredictor, serve_http
 from unet_convlstm_tpu_torch.train import cloud_gate
@@ -4398,9 +4416,10 @@ def _dp_against_one_each_step(tr, mesh, policy, per_rank_bn=False):
     return out
 
 
-def _within(steps, tol) -> bool:
-    """Every step's readings within ``tol`` (and as many steps as run)."""
-    return len(steps) == TRAIN_STEPS and all(
+def _within(steps, tol, n=TRAIN_STEPS) -> bool:
+    """Every step's readings within ``tol`` (and ``n`` steps, as many as
+    run)."""
+    return len(steps) == n and all(
         st["loss_rel"] <= tol["loss"] and st["sums_err"] <= tol["sums"]
         and st["params_flipped"] <= tol["params_flipped"]
         and st["params_rms_lr"] <= tol["params_rms_lr"]
@@ -4563,6 +4582,305 @@ def phase_dp(workdir: str):
     return per_step
 
 
+# ---------------------------------------------------------------------------
+# 18. tensor parallelism on the one card
+# ---------------------------------------------------------------------------
+
+# (data, model, steps): 2 and 4 gloo ranks. Each tensor-parallel step of
+# the benchmark's batch moves its gathered activations and summed input
+# gradients through gloo's host copies (3 to 9 s a step on an H100's
+# machine; PERF.md), so the four-rank mesh takes two steps a run, not three
+TP_MESHES = ((1, 2, 3), (2, 2, 2))
+TP_MODEL = 2
+# The ranks against one process, each step from the same state on both
+# sides (phase 5's measures). A tensor-parallel step computes the same
+# function: each rank's convs compute its block of output channels with
+# the same per-channel sums, but a conv's input gradient is the sum of the
+# blocks' partial gradients (added over the model group in f32 and rounded
+# once to the activation's dtype), the global norm adds the shards'
+# squared norms over the group, and with D = 2 the data-parallel sums of
+# phase 17 add in another order too. f32 (TF32 off): TRAIN_F32_TOL. bf16
+# (the benchmark's configuration): an input gradient rounded to bf16 after
+# another order of sums may land one ulp apart, and AdamW's update is about
+# +-lr whatever |g| is, so an element whose gradient lies at that noise
+# takes a noise-made sign. TP_BF16_TOL is about three times the largest of
+# the steps' readings of both meshes on an H100 (the loss 2.4e-5, the sums
+# 3.0e-4, 3.8% of the elements beyond lr/2 and 0.066 lr RMS at the first
+# step, BN 1.18e-4; PERF.md section 6).
+TP_BF16_TOL = dict(loss=1e-4, sums=1e-3, params_flipped=0.12,
+                   params_rms_lr=0.2, bn=3.5e-4)
+TP_TOL_WHY = ("the ranks of each mesh against one process, each step from "
+              "the same state: f32 (TF32 off) as phase 5's train_f32; bf16 "
+              f"the loss {TP_BF16_TOL['loss']:g} and metric sums "
+              f"{TP_BF16_TOL['sums']:g} relative, params at most "
+              f"{TP_BF16_TOL['params_flipped']:.0%} of elements off by > "
+              f"lr/2 and the rest {TP_BF16_TOL['params_rms_lr']:g} lr RMS, "
+              f"BN stats {TP_BF16_TOL['bn']:g} of max(1, max|stat|); the "
+              "replicated leaves and the gathered shards the same bits on "
+              "every rank; ZeRO-1 on top bit-equal to replicated moments; "
+              "K2 at each Cout/2 shape as conv3x3_fused; evaluate_model "
+              "and rollout_scan in f32 (TF32 off) 1e-5 relative, "
+              "histograms equal")
+
+
+def k2_tp_convs(base, hw, model):
+    """``k2_convs`` of a rank whose convs hold 1/model of the output
+    channels (conv2 reads all of conv1's)."""
+    return [(side, cin, cout // model, pro, n)
+            for side, cin, cout, pro, n in k2_convs(base, hw)]
+
+
+def _gloo_cuda_groups(mesh):
+    """Does gloo take CUDA tensors for each collective the tensor-parallel
+    code calls, on the whole group and the grid's data and model groups?
+    (all-reduce of f32, all-gather of f32 and bf16)"""
+    out = {}
+    for axis, group, size in (("world", mesh.group, mesh.data * mesh.model),
+                              ("data", mesh.data_group, mesh.data),
+                              ("model", mesh.model_group, mesh.model)):
+        for name, dtype, fn in (
+                ("all_reduce_f32", torch.float32,
+                 lambda t, g=group: dist.all_reduce(t, group=g)),
+                ("all_gather_f32", torch.float32,
+                 lambda t, g=group, n=size: dist.all_gather(
+                     [torch.empty_like(t) for _ in range(n)], t, group=g)),
+                ("all_gather_bf16", torch.bfloat16,
+                 lambda t, g=group, n=size: dist.all_gather(
+                     [torch.empty_like(t) for _ in range(n)], t, group=g))):
+            try:
+                fn(torch.ones(8, device=DEV, dtype=dtype))
+                torch.cuda.synchronize()
+                out[f"{axis}.{name}"] = "ok"
+            except Exception as e:   # recorded; the phase then fails below
+                out[f"{axis}.{name}"] = (f"{type(e).__name__}: "
+                                         f"{str(e).splitlines()[0][:160]}")
+    return out
+
+
+def _digests(named) -> dict:
+    """Each tensor's bytes as a SHA-1 (bit-identity without moving the
+    tensors between processes)."""
+    return {k: hashlib.sha1(v.detach().reshape(-1).contiguous()
+                            .view(torch.uint8).cpu().numpy().tobytes())
+            .hexdigest() for k, v in named.items()}
+
+
+def _moment_digests(opt) -> dict:
+    return _digests({f"{i}.{k}": t for i, st in
+                     opt.state_dict()["adamw"]["state"].items()
+                     for k, t in st.items()})
+
+
+def _tp_model(mesh, zero1=False):
+    """The benchmark's model from the seeded init, narrowed to this rank's
+    shards by the JAX rule."""
+    _, init, _, _ = build_model(benchmark.MODEL_CFG)
+    model = init(torch.Generator().manual_seed(SEED), device=DEV)
+    sharding = MeshRules(mesh, shard_model_channels=True,
+                         shard_opt_state_data=zero1
+                         ).tree_sharding(model.state_dict())
+    return shard_model(model, sharding), sharding
+
+
+def _tp_steps(tr, mesh, policy, steps, zero1=False, compare=True):
+    """``steps`` steps of the tensor-parallel step from the init under
+    ``policy`` (FP32_POLICY with TF32 off), this rank's rows, launches and
+    wall times read around each step. ``compare``: before each step rank 0
+    also takes the one-process step on the whole batch from the same state
+    (the ranks' state gathered) and compares (phase 5's measures)."""
+    rows = mesh.rows(TB)
+    x, y = tr.x[rows].contiguous(), tr.y[rows].contiguous()
+    apply = tr.flags(policy, True)
+    counts = collections.Counter()
+    losses, ms, cmp = [], [], []
+    with deterministic(DEV), (full_fp32() if policy is FP32_POLICY
+                              else contextlib.nullcontext()):
+        model, sharding = _tp_model(mesh, zero1)
+        opt = make_optimizer(model.named_parameters(), LR, mesh=mesh,
+                             zero1=zero1)
+        step = make_train_step(apply, tr.norm, mesh=mesh,
+                               state_sharding=sharding)
+        one = make_train_step(apply, tr.norm)
+        one_opt = make_optimizer(_fresh_named(tr), LR)
+        for _ in range(steps):
+            if compare:      # a collective: every rank gathers
+                before = copy.deepcopy((full_state_dict(model, mesh),
+                                        opt.state_dict()))
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            loss, sums = step(model, opt, x, y)
+            losses.append(loss.item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            counts.update(path_counts())
+            if not compare:
+                continue
+            after = full_state_dict(model, mesh)
+            if mesh.rank == 0:
+                tr.model.load_state_dict(before[0])
+                one_opt.load_state_dict(before[1])
+                lo, so = one(tr.model, one_opt, tr.x, tr.y)
+                ref = tr.model.state_dict()
+                flipped, rms = _params_diff(after, ref, tr.model)
+                cmp.append({"loss": [losses[-1], lo.item()],
+                            "loss_rel": abs(losses[-1] / lo.item() - 1),
+                            "sums_err": _sums_err(sums, so),
+                            "params_flipped": flipped, "params_rms_lr": rms,
+                            "bn_err": _bn_err(after, ref)})
+            del after
+        replicated = {n: t for n, t in model.state_dict().items()
+                      if sharding.model_axis(n) is None}
+        return {"losses": losses, "ms": ms, "counts": dict(counts),
+                "steps": cmp, "replicated": _digests(replicated),
+                "gathered": _digests(full_state_dict(model, mesh)),
+                "moments": _moment_digests(opt)}
+
+
+def _tp_eval(tr, mesh, npz):
+    """evaluate_model (variables_sharding) and rollout_scan in f32 (TF32
+    off) with the sharded model at the init."""
+    model, sharding = _tp_model(mesh)
+    model.eval()
+    apply = tr.flags(FP32_POLICY, True)
+    ds = NPZSequenceDataset(npz)
+    _, _, _, init_state = build_model(benchmark.MODEL_CFG)
+    with full_fp32():
+        rep = evaluate_model(apply, model, ds, indices=np.arange(len(ds)),
+                             batch_size=DP_EVAL_B, use_mask=False, mesh=mesh,
+                             variables_sharding=sharding)
+        x = normalize_x(tr.x[:DP_ROLL_B], tr.norm)
+        y, st = rollout_scan(apply, model, x, init_state, mesh=mesh)
+    return {"report": rep.to_dict(), "y": to_host(y), "state": to_host(st)}
+
+
+def _tp_rank(mesh, npz, steps):
+    """One gloo rank of a tensor-parallel mesh on the card: gloo's CUDA
+    support on the grid's groups, the bf16 and f32 steps against one
+    process, ZeRO-1 on top (D > 1), evaluation and rollout."""
+    torch.cuda.set_device(0)
+    tr = _Train()
+    out = {"gloo_cuda": _gloo_cuda_groups(mesh),
+           "bf16": _tp_steps(tr, mesh, DEFAULT_POLICY, steps)}
+    if mesh.data > 1:
+        out["zero1"] = _tp_steps(tr, mesh, DEFAULT_POLICY, steps,
+                                 zero1=True, compare=False)
+    out["f32"] = _tp_steps(tr, mesh, FP32_POLICY, steps)
+    out["eval"] = _tp_eval(tr, mesh, npz)
+    return out
+
+
+def _tp_mesh_line(data, steps, ranks, one_eval, wall):
+    """The checks of one mesh's ranks, as its line."""
+    r0 = ranks[0]
+    expect = on_main_routes({"gate_update": K1_PER_STEP,
+                             "gate_update_bwd": K1_PER_STEP,
+                             "conv3x3_fused": K2_PER_STEP, **NO_LAUNCHES})
+    runs = [m for m in ("bf16", "zero1", "f32") if m in r0]
+    # the bf16 runs on the main path's routes; the f32 run's K2 calls take
+    # the generic route, as under the FP32 policy in one process
+    f32_expect = dict(expect, conv3x3_fused_wgmma=0,
+                      conv3x3_fused_generic=K2_PER_STEP)
+    counts_ok = all(r[m]["counts"] == {
+        k: v * steps for k, v in (f32_expect if m == "f32"
+                                  else expect).items()}
+        for r in ranks for m in runs)
+    per_step = {k: v // steps for k, v in r0["bf16"]["counts"].items()}
+    same = {m: {k: all(r[m][k] == r0[m][k] for r in ranks)
+                for k in ("replicated", "gathered", "moments")}
+            for m in runs}
+    bit_identical = all(all(v.values()) for v in same.values()) and all(
+        r[m]["losses"] == r0[m]["losses"] for r in ranks for m in runs)
+    zero1_ok = None
+    if "zero1" in r0:
+        zero1_ok = all(r["zero1"][k] == r["bf16"][k]
+                       for r in ranks for k in ("losses", "gathered",
+                                                "moments"))
+    f32, bf16 = r0["f32"]["steps"], r0["bf16"]["steps"]
+    steps_ok = (_within(f32, TRAIN_F32_TOL, steps)
+                and _within(bf16, TP_BF16_TOL, steps))
+    ev, ev1 = r0["eval"], one_eval
+    m, s1 = ev["report"], ev1["report"]
+    eval_err = max(_np_rel(m[k], s1[k]) for k in ("mae", "rmse",
+                                                  "mae_over_time"))
+    eval_ok = (eval_err <= DP_TOL["eval"] and m["n_pixels"] == s1["n_pixels"]
+               and all(np.array_equal(m[k], s1[k])
+                       for k in ("gt_hist", "pred_hist", "err_hist")))
+    roll_err = max([_np_rel(ev["y"], ev1["y"])] + [
+        _np_rel(a, b) for a, b in zip(_leaves(ev["state"]),
+                                      _leaves(ev1["state"]))])
+    gloo_ok = all(v == "ok" for r in ranks for v in r["gloo_cuda"].values())
+    line = {"phase": "tp", "mesh": {"data": data, "model": TP_MODEL},
+            "ranks": len(ranks), "backend": "gloo",
+            "device": "cuda:0 shared", "B": TB, "rows_per_rank": TB // data,
+            "T": TT, "H": THW, "base_ch": TBASE, "steps": steps,
+            "runs": runs, "gloo_cuda": r0["gloo_cuda"], "gloo_ok": gloo_ok,
+            "launches_per_rank_per_step": per_step, "expected": expect,
+            "counts_ok": counts_ok, "bf16_losses": r0["bf16"]["losses"],
+            "f32_steps": f32, "bf16_steps": bf16, "bf16_tol": TP_BF16_TOL,
+            "steps_ok": steps_ok, "ranks_same_bits": same,
+            "bit_identical": bit_identical,
+            "zero1_bit_equal_replicated": zero1_ok,
+            "eval_rel_err": eval_err, "eval_ok": eval_ok,
+            "rollout_rel_err": roll_err,
+            "rollout_ok": roll_err <= DP_TOL["rollout"],
+            "shared_card_step_ms": {
+                **{f"rank{i}_{m}": r[m]["ms"] for i, r in enumerate(ranks)
+                   for m in runs},
+                "note": "processes sharing one card: no tensor-parallel "
+                        "speed"},
+            "nccl_multi_rank": "unverified: one card, and NCCL takes one "
+                               "rank a device",
+            "ranks_wall_s": wall}
+    line["ok"] = (gloo_ok and counts_ok and steps_ok and bit_identical
+                  and zero1_ok is not False and eval_ok
+                  and line["rollout_ok"])
+    return line, per_step
+
+
+def phase_tp(workdir: str, gen):
+    """Tensor parallelism on the card: K2 at each rank's Cout/2 shapes, then
+    gloo ranks sharing cuda:0 at each mesh of TP_MESHES against one
+    process. Returns the ranks' launch counts per step and K2's totals."""
+    t_phase = time.perf_counter()
+    k2 = {}
+    for data, _, _ in TP_MESHES:
+        k2[data] = check_k2(gen, k2_tp_convs(TBASE, THW, TP_MODEL),
+                            (TB // data) * TT, f"tp_rank_step_d{data}",
+                            serving=False)
+    npz = os.path.join(workdir, "tp.npz")
+    moving_mnist.save_moving_mnist_npz(npz, seq_len=TT,
+                                       num_samples=DP_EVAL_N,
+                                       image_size=THW, seed=SEED + 11,
+                                       as_xy=True)
+    one_eval = _dp_eval(_Train(), None, npz)
+    lines, per_step = [], None
+    for data, model, steps in TP_MESHES:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_local_ranks(_tp_rank, data * model, (npz, steps),
+                                backend="gloo", timeout_s=900,
+                                group_timeout_s=300, model=model)
+        line, per_step = _tp_mesh_line(data, steps, ranks, one_eval,
+                                       time.perf_counter() - t0)
+        emit(line)
+        lines.append(line)
+    summary = {"phase": "tp_summary",
+               "meshes": [ln["mesh"] for ln in lines],
+               "ok": [ln["ok"] for ln in lines],
+               "k2_cout_half_ms_per_rank_step": {
+                   f"rows_{TB // d}": {k: t[k] for k in (
+                       "ms", "plain_ms", "library_ms", "bound_ms")}
+                   for d, t in k2.items()},
+               "phase_wall_s": time.perf_counter() - t_phase,
+               "note": "processes sharing one card: no tensor-parallel "
+                       "speed; multi-rank NCCL unverified (one card)"}
+    emit(summary)
+    if not all(summary["ok"]):
+        raise AssertionError("tensor parallelism on the card failed")
+    return per_step, k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4619,7 +4937,7 @@ def main() -> int:
           "repro": ("K2's y, sum and sumsq over 20 launches, the training "
                     "steps run twice, the production gate run twice: "
                     "bit-equal"),
-          "dp": DP_TOL_WHY})
+          "dp": DP_TOL_WHY, "tp": TP_TOL_WHY})
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     k1 = check_k1(gen, K1_LEVELS, B, "request")
     k1_edges = check_k1_edges(gen)
@@ -4667,6 +4985,8 @@ def main() -> int:
         phase_repro(gen, gate)
         torch.cuda.empty_cache()
         dp_counts = phase_dp(workdir)
+        torch.cuda.empty_cache()
+        tp_counts, k2_tp = phase_tp(workdir, gen)
 
     per = f"one request: B={B}, T={T}, {HW}x{HW}, base_ch {BASE}, bf16"
     per_step = (f"one training step: B={TB}, T={TT}, {THW}x{THW}, base_ch "
@@ -4708,6 +5028,15 @@ def main() -> int:
                                for r in doubleconv_fused.ROUTES},
          "train": dict(train_part("conv3x3_fused", k2_train),
                        bound_by=k2_bound_by(k2_train)),
+         "tp_cout_half": {
+             f"rows_{TB // d}": dict(
+                 {k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "max_abs_err")},
+                 bound_by=k2_bound_by(t),
+                 per=f"one rank's step of a ({d}, {TP_MODEL}) mesh: "
+                     f"{TB // d} rows, T={TT}, {THW}x{THW}, base_ch "
+                     f"{TBASE}, Cout/{TP_MODEL}, bf16")
+             for d, t in k2_tp.items()},
          "request_b1t1": dict(k2_b1, bound_by=k2_bound_by(k2_b1),
                               per=f"one request: B=1, T=1, {HW}x{HW}, "
                                   f"base_ch {BASE}, bf16")},
@@ -4747,6 +5076,7 @@ def main() -> int:
         k["fit_launches"] = fit_counts[k["name"]]
         k["datachain_launches"] = chain_counts[k["name"]]
         k["dp_launches_per_rank_per_step"] = dp_counts[k["name"]]
+        k["tp_launches_per_rank_per_step"] = tp_counts[k["name"]]
     kernels[3]["datachain_launches"] = chain_counts["mc_sample_flights"]
     kernels[0]["resnet"] = resnet["gate_update"]
     kernels[2]["resnet"] = resnet["gate_update_bwd"]

@@ -1,9 +1,10 @@
 """Local process groups for the port's data-parallel checks: ``fn(mesh,
 *args)`` run in a few spawned processes on this host, joined in one
-``torch.distributed`` group with its own collective timeout and a
-wall-clock limit on the whole run, so that a rank that dies or hangs fails
-the caller instead of blocking it. ``tests/test_torch_parallel.py`` runs
-its CPU ranks over gloo with it, and ``chip_smoke.py`` its ranks that
+``torch.distributed`` group (a ``(data, model)`` mesh) with its own
+collective timeout and a wall-clock limit on the whole run, so that a rank
+that dies or hangs fails the caller instead of blocking it.
+``tests/test_torch_parallel.py`` and ``tests/test_torch_tensor_parallel.py``
+run their CPU ranks over gloo with it, and ``chip_smoke.py`` its ranks that
 share one card."""
 
 import datetime
@@ -28,13 +29,15 @@ def free_port() -> int:
 
 
 def _local_rank_main(rank, nprocs, port, backend, timeout_s, fn, args,
-                     results):
+                     results, model=1):
     try:
         dist.init_process_group(
             backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
             world_size=nprocs, timeout=datetime.timedelta(seconds=timeout_s))
         try:
-            out = fn(make_mesh(group=dist.group.WORLD), *args)
+            out = fn(make_mesh(nprocs // model, model,
+                               group=dist.group.WORLD, timeout=timeout_s),
+                     *args)
         finally:
             dist.destroy_process_group()
         results.put((rank, True, out))
@@ -44,9 +47,12 @@ def _local_rank_main(rank, nprocs, port, backend, timeout_s, fn, args,
 
 def run_local_ranks(fn: Callable, nprocs: int, args: tuple = (),
                     backend: str = "gloo", timeout_s: float = 300.0,
-                    group_timeout_s: float = 60.0) -> List[Any]:
+                    group_timeout_s: float = 60.0,
+                    model: int = 1) -> List[Any]:
     """Run ``fn(mesh, *args)`` in ``nprocs`` spawned processes joined in one
     process group on localhost; returns the ranks' results in rank order.
+    ``mesh`` is the ``(nprocs / model, model)`` mesh over the group, its
+    sub-groups with the same collective timeout.
     ``fn`` must be importable by name and its result picklable. The group's
     collectives time out after ``group_timeout_s`` and the whole run after
     ``timeout_s`` of wall time: a rank that dies or hangs fails the run
@@ -56,7 +62,7 @@ def run_local_ranks(fn: Callable, nprocs: int, args: tuple = (),
     port = free_port()
     procs = [ctx.Process(target=_local_rank_main,
                          args=(r, nprocs, port, backend, group_timeout_s, fn,
-                               args, results), daemon=True)
+                               args, results, model), daemon=True)
              for r in range(nprocs)]
     for p in procs:
         p.start()

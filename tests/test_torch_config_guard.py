@@ -52,15 +52,14 @@ def test_repo_configs_load_equal(path):
 @pytest.mark.parametrize("over", [{"mesh_data": "2"}, {"mesh_model": "2"},
                                   {"zero1": "true"}])
 def test_multi_device_keys_raise(over):
-    """Data parallelism and ZeRO-1 (item 7a) pass the config check; a
-    tensor-parallel mesh (item 7b) raises."""
+    """Data parallelism and ZeRO-1 (item 7a) and a tensor-parallel mesh
+    (item 7b) pass the config check; a degree below 1 raises."""
     check_mesh(TCfg().apply_overrides({"mesh_data": "1"}))
-    cfg = TCfg().apply_overrides(over)
-    if "mesh_model" in over:
-        with pytest.raises(NotImplementedError, match="item 7b"):
+    check_mesh(TCfg().apply_overrides(over))
+    for key in ("mesh_data", "mesh_model"):
+        cfg = TCfg().apply_overrides({**over, key: "0"})
+        with pytest.raises(ValueError, match="must be >= 1"):
             check_mesh(cfg)
-    else:
-        check_mesh(cfg)
 
 
 def test_guard_decisions_and_state_equal_jax():

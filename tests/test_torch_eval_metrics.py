@@ -135,12 +135,14 @@ def test_histogram_function_equals_jnp_histogram():
 
 
 def test_multi_device_arguments_raise(npz):
-    """A mesh that is no parallel.Mesh, and tensor-parallel variables
-    (item 7b), raise; data parallelism runs (test_torch_parallel.py)."""
+    """A mesh that is no parallel.Mesh, and variables_sharding that is no
+    MeshRules.tree_sharding result, raise TypeError; data and tensor
+    parallelism run (test_torch_parallel.py,
+    test_torch_tensor_parallel.py)."""
     ds = NPZSequenceDataset(npz)
     with pytest.raises(TypeError, match="parallel.Mesh"):
         evaluate_model(lambda *a, **k: None, torch.nn.Linear(1, 1), ds,
                        mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    with pytest.raises(TypeError, match="tree_sharding"):
         evaluate_model(lambda *a, **k: None, torch.nn.Linear(1, 1), ds,
                        variables_sharding=object())

@@ -221,7 +221,9 @@ def test_fit_checks(npz, tmp_path):
     with pytest.raises(ValueError, match="accum_steps"):
         tloop.fit(_cfg(TrainConfig, npz, str(tmp_path), accum_steps=3),
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    # a tensor-parallel mesh runs (test_torch_tensor_parallel.py), under
+    # torchrun: without a process group it raises
+    with pytest.raises(ValueError, match="torchrun"):
         tloop.fit(_cfg(TrainConfig, npz, str(tmp_path), mesh_model=2),
                   device="cpu")
 

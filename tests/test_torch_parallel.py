@@ -371,8 +371,15 @@ def test_mesh_construction():
     assert make_mesh(data=1).data == 1
     with pytest.raises(ValueError, match="process group"):
         make_mesh(data=2)
-    with pytest.raises(NotImplementedError, match="7b"):
+    # a tensor-parallel mesh runs (test_torch_tensor_parallel.py) over a
+    # process group of data x model ranks
+    with pytest.raises(ValueError, match="process group"):
         make_mesh(model=2)
+    grid = Mesh(None, 2, 3, "", model=2)       # rank 3 of a 2 x 2 grid
+    assert grid.shape == {"data": 2, "model": 2}
+    assert (grid.data_rank, grid.model_rank) == (1, 1)
+    np.testing.assert_array_equal(batch_sharding(grid).local(np.arange(8)),
+                                  [4, 5, 6, 7])
     m = Mesh(None, 4, 2, "")
     a = np.arange(8)
     np.testing.assert_array_equal(batch_sharding(m).local(a), [4, 5])
@@ -661,14 +668,16 @@ def test_fit_data_parallel_matches_one_process(mnist_npz, tmp_path):
 
 
 def test_fit_checks_the_world_size(mnist_npz, tmp_path, monkeypatch):
-    """A launch whose WORLD_SIZE differs from mesh_data raises; so does
-    mesh_data > 1 with no process group, and a tensor-parallel mesh."""
+    """A launch whose WORLD_SIZE differs from mesh_data x mesh_model
+    raises; so does mesh_data > 1 with no process group."""
     cfg = _fit_cfg(mnist_npz, str(tmp_path), mesh_data=2)
     with pytest.raises(ValueError, match="torchrun"):
         fit(cfg, verbose=False, device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "3")
     with pytest.raises(ValueError, match="WORLD_SIZE=3"):
         fit(cfg, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="7b"):
+    # a tensor-parallel mesh of 2 ranks (test_torch_tensor_parallel.py)
+    with pytest.raises(ValueError, match="WORLD_SIZE=3 but mesh_data=None "
+                                         "x mesh_model=2"):
         fit(_fit_cfg(mnist_npz, str(tmp_path), mesh_model=2), verbose=False,
             device="cpu")

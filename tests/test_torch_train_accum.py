@@ -93,14 +93,16 @@ def test_eval_step_with_padded_rows_matches_jax(use_mask):
 
 
 def test_multi_device_entry_points_raise():
-    """Tensor parallelism (item 7b) and K steps a dispatch (item 7c) raise
-    citing the roadmap; a mesh that is no parallel.Mesh raises a TypeError
-    (data parallelism runs: test_torch_parallel.py)."""
+    """K steps a dispatch (item 7c) raises citing the roadmap; a mesh
+    that is no parallel.Mesh, and a sharding that is no
+    MeshRules.tree_sharding result, raise a TypeError (data and tensor
+    parallelism run: test_torch_parallel.py,
+    test_torch_tensor_parallel.py)."""
     v, _, _, stats = make_case(5)
     _, apply = torch_model(v)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="tree_sharding"):
         tsteps.make_train_step(apply, stats, state_sharding=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="tree_sharding"):
         tsteps.make_eval_step(apply, stats, variables_sharding=object())
     for make in (tsteps.make_train_step, tsteps.make_eval_step):
         with pytest.raises(TypeError, match="parallel.Mesh"):

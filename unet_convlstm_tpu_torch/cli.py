@@ -12,6 +12,9 @@ the data chain's ``gen-patches``, ``gen-renders``, ``gen-maps`` and
         --npz mm.npz --resume ckpts/custom_last.pt epochs=3
     torchrun --nproc-per-node 2 -m unet_convlstm_tpu_torch train \\
         --config configs/mnist_small.json --npz mm.npz mesh_data=2 zero1=true
+    torchrun --nproc-per-node 4 -m unet_convlstm_tpu_torch train \\
+        --config configs/mnist_small.json --npz mm.npz mesh_data=2 \\
+        mesh_model=2 zero1=true
     python -m unet_convlstm_tpu_torch overfit --npz mm.npz --base-ch 16
     python -m unet_convlstm_tpu_torch evaluate --checkpoint ckpts/custom_best.pt \\
         --npz mm.npz --out-dir eval_out --batch-size 32 [--int8 --int8-calib 2]
@@ -40,10 +43,11 @@ the data chain's ``gen-patches``, ``gen-renders``, ``gen-maps`` and
         --checkpoint ckpts/custom_best.pt --quantize ckpts/custom_int8.pt
     python -m unet_convlstm_tpu_torch doctor [--device cpu]
 
-Data-parallel ``train`` (a config's ``mesh_data`` > 1, with ``zero1``) and
-``evaluate --mesh-data N`` run one process a rank under torchrun, which
-gives each its rank; the process group is NCCL on the cards (LOCAL_RANK
-picks the card) and gloo with ``--device cpu``. Only rank 0 writes.
+Parallel ``train`` (a config's ``mesh_data`` and ``mesh_model``: data
+parallel, tensor parallel or both, with ``zero1``) and ``evaluate
+--mesh-data N`` run one process a rank under torchrun, which gives each its
+rank; the process group is NCCL on the cards (LOCAL_RANK picks the card)
+and gloo with ``--device cpu``. Only global rank 0 writes.
 
 Runs on the card unless ``--device cpu`` is given (``gen-patches``,
 ``stats``, ``inspect`` and ``convert-checkpoint`` are host work; the .nc
@@ -91,7 +95,8 @@ def cmd_train(args) -> None:
         cfg.npz_path = args.npz
     if not cfg.npz_path:
         raise SystemExit("need --npz or npz_path in the config")
-    with _data_parallel(cfg.mesh_data or 1, args.device) as (mesh, device):
+    with _data_parallel(cfg.mesh_data or 1, args.device,
+                        cfg.mesh_model) as (mesh, device):
         result = fit(cfg, profile_dir=args.profile_dir,
                      resume_from=args.resume, device=device,
                      group=mesh.group if mesh is not None else None)
@@ -100,18 +105,19 @@ def cmd_train(args) -> None:
 
 
 @contextlib.contextmanager
-def _data_parallel(n: int, device):
-    """(mesh, device) of a data-parallel command: for n > 1 the process
-    group torchrun's environment describes (parallel.init_group_from_env),
-    destroyed on exit; (None, device) for one process."""
-    if n <= 1:
+def _data_parallel(n: int, device, model: int = 1):
+    """(mesh, device) of a parallel command of ``n`` data x ``model``
+    ranks: for more than one rank the process group torchrun's environment
+    describes (parallel.init_group_from_env), destroyed on exit; (None,
+    device) for one process."""
+    if n * model <= 1:
         yield None, device
         return
     import torch.distributed as dist
 
     from .parallel.mesh import init_group_from_env
 
-    mesh, dev = init_group_from_env(device, data=n)
+    mesh, dev = init_group_from_env(device, data=n, model=model)
     try:
         yield mesh, dev
     finally:
@@ -547,13 +553,98 @@ print("PROBE_OK", name, total)
 """
 
 
+DOCTOR_MESH_RANKS, DOCTOR_MESH_TIMEOUT_S = 2, 60
+
+
+def _doctor_mesh_rank(rank: int, port: int, results) -> None:
+    """One gloo CPU rank of doctor's process-group check: a (1, 2) mesh,
+    a conv channel-sharded over its model axis against the whole conv in
+    this process (forward and the input's gradient). Puts (rank, error or
+    the traceback) on ``results``."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from .core.dtypes import FP32_POLICY
+    from .ops.conv import Conv2d, conv2d
+    from .parallel import MeshRules, make_mesh, shard_model
+
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=DOCTOR_MESH_RANKS, timeout=datetime.timedelta(
+                seconds=DOCTOR_MESH_TIMEOUT_S))
+        try:
+            mesh = make_mesh(1, DOCTOR_MESH_RANKS, group=dist.group.WORLD,
+                             timeout=DOCTOR_MESH_TIMEOUT_S)
+            gen = torch.Generator().manual_seed(0)
+            whole = Conv2d(4, 8, 3, generator=gen)
+            sharded = Conv2d(4, 8, 3)
+            sharded.load_state_dict(whole.state_dict())
+            shard_model(sharded, MeshRules(mesh, shard_model_channels=True)
+                        .tree_sharding(sharded.state_dict()))
+            x = torch.randn(2, 8, 8, 4, generator=gen)
+            out = []
+            for conv, m in ((whole, None), (sharded, mesh)):
+                xg = x.clone().requires_grad_()
+                y = conv2d(xg, conv, policy=FP32_POLICY, mesh=m)
+                y.square().mean().backward()
+                out.append((y.detach(), xg.grad))
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(out[0], out[1]))
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, err))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+
+
+def doctor_mesh_probe() -> None:
+    """Doctor's process-group check, run in its own process (``python -c``
+    with a time limit): two spawned gloo CPU ranks; prints ``MESH_OK`` and
+    the largest difference from one process, or the failure."""
+    import multiprocessing
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_doctor_mesh_rank, args=(r, port, results),
+                         daemon=True) for r in range(DOCTOR_MESH_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(results.get(timeout=2 * DOCTOR_MESH_TIMEOUT_S)
+                   for _ in procs)
+    finally:
+        for p in procs:
+            p.join(5)
+            if p.is_alive():
+                p.kill()
+    bad = [v for v in got.values() if isinstance(v, str)]
+    if bad:
+        print(bad[0], file=sys.stderr)
+        raise SystemExit(1)
+    err = max(got.values())
+    print(("MESH_OK" if err <= 1e-5 else "MESH_DIFFERS"),
+          f"(1, {DOCTOR_MESH_RANKS}) mesh over gloo CPU ranks, a "
+          f"channel-sharded conv against one process: max |diff| {err:.3g}")
+
+
 def cmd_doctor(args) -> None:
     """Checks of the environment the port runs in, one PASS or FAIL line
     each; exits non-zero on any FAIL. On the card: nvcc, the build and load
     of each CUDA source, the native host kernels, a device probe bounded
     by --device-timeout in a subprocess (a wedged card reports TIMED OUT
     rather than hanging) and a writable build directory. With --device cpu
-    the CUDA lines are not applicable and the probe runs on the CPU."""
+    the CUDA lines are not applicable and the probe runs on the CPU. In
+    both, a process-group check: two gloo CPU ranks at a (1, 2) mesh run a
+    channel-sharded conv against one process, in a subprocess with a time
+    limit (the counterpart of the JAX doctor's virtual-mesh check)."""
     import subprocess
     import tempfile
 
@@ -618,6 +709,25 @@ def cmd_doctor(args) -> None:
         check(f"device probe ({dev}: a 128x128 matmul)", False,
               f"TIMED OUT after {args.device_timeout} s: the device does "
               "not answer")
+    mesh_check = ("process group: 2 gloo CPU ranks, (1, 2) mesh, a "
+                  "channel-sharded conv")
+    try:
+        # the package importable in the subprocess from any working dir
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        r = subprocess.run(
+            [sys.executable, "-c", "from unet_convlstm_tpu_torch.cli import "
+             "doctor_mesh_probe; doctor_mesh_probe()"],
+            capture_output=True, text=True, env=env,
+            timeout=3 * DOCTOR_MESH_TIMEOUT_S)
+        ok = "MESH_OK" in r.stdout
+        check(mesh_check, ok, r.stdout.strip().splitlines()[-1]
+              if r.stdout.strip() else
+              (r.stderr.strip().splitlines() or ["no output"])[-1])
+    except subprocess.TimeoutExpired:
+        check(mesh_check, False, f"TIMED OUT after "
+              f"{3 * DOCTOR_MESH_TIMEOUT_S} s")
     try:
         build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
         with tempfile.NamedTemporaryFile(dir=build.BUILD_ROOT):

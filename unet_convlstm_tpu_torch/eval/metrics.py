@@ -17,7 +17,11 @@ shards the batch over 'data'): every rank reads each padded batch, draws
 the same per-row scatter indices, and runs its B/D rows; the batch's sums
 and histograms are summed over the ranks and the sampled pixels gathered
 in row order, so each rank's report is the one-device report (up to the
-order of the f32 sums).
+order of the f32 sums). With ``variables_sharding`` (tensor parallel, a
+mesh with ``model`` > 1 and a model narrowed by
+``parallel.tensor.shard_model``) the sharded convs run column-parallel
+over the model group, the model ranks of a data rank take the same rows,
+and the reductions run over the data group.
 
 The histograms follow ``jnp.histogram``'s rule exactly (``torch.histogram``
 has no CUDA implementation and ``torch.histc`` takes no weights): the f32
@@ -31,6 +35,7 @@ are summed with ``scatter_add_``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -40,7 +45,8 @@ from ..data.npz_dataset import NPZSequenceDataset
 from ..data.pipeline import SequenceLoader, pad_batch
 from ..ops.normalize import (compute_mask, denormalize_y, normalize_x,
                              normalize_y)
-from ..parallel.mesh import MODEL_PARALLEL, data_mesh
+from ..parallel.mesh import data_mesh, resolve_sharding
+from ..parallel.tensor import check_sharded
 
 
 
@@ -218,11 +224,16 @@ def evaluate_model(apply_fn: Callable, model: torch.nn.Module,
     scatter sample is drawn with the JAX package's numpy calls in its order,
     so the same predictions give the same scatter pool. ``mesh``: the pass
     data parallel (see the module's docstring); ``batch_size`` must be
-    divisible by its data degree. ``variables_sharding`` (tensor parallel)
-    raises NotImplementedError (item 7b)."""
-    if variables_sharding is not None:
-        raise NotImplementedError(MODEL_PARALLEL)
+    divisible by its data degree. ``variables_sharding``: tensor parallel
+    (see the module's docstring); its mesh stands in for a missing
+    ``mesh``."""
+    mesh, sharding = resolve_sharding(variables_sharding, mesh,
+                                      "variables_sharding")
     mesh = data_mesh(mesh)
+    if sharding is not None:
+        check_sharded(model, sharding)
+    if mesh is not None and mesh.model > 1:
+        apply_fn = functools.partial(apply_fn, mesh=mesh)
     if mesh is not None and batch_size % mesh.data:
         raise ValueError(f"eval batch {batch_size} not divisible by mesh "
                          f"data degree {mesh.data}")

@@ -27,6 +27,7 @@ Everything runs under ``torch.inference_mode()`` on ``x_seq``'s device.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -68,8 +69,12 @@ def rollout_scan(apply_fn: Callable, model, x_seq: torch.Tensor,
     rollout shards the batch and its carries over 'data'. Every rank passes
     the whole batch (and state); each runs its B/D rows, and the outputs and
     final states are gathered in row order, so every rank returns the
-    one-device result. B must be divisible by D."""
+    one-device result. B must be divisible by D. On a mesh with ``model``
+    > 1 the model's tensor-parallel shards run column-parallel over its
+    model group (the mesh bound into ``apply_fn``)."""
     mesh = data_mesh(mesh)
+    if mesh is not None and mesh.model > 1:
+        apply_fn = functools.partial(apply_fn, mesh=mesh)
     B, T, H, W, _ = x_seq.shape
     if mesh is not None and B % mesh.data:
         raise ValueError(f"rollout batch {B} not divisible by mesh data "

@@ -106,14 +106,14 @@ def _basic_block(blk: BasicBlock, x: torch.Tensor, train: bool,
     # explicit symmetric pads: "SAME" pads (0, 1) under stride 2, torch's
     # resnet (1, 1)
     y = conv2d(x, blk.conv1, stride=blk.stride,
-               padding=[(1, 1), (1, 1)], policy=policy)
+               padding=[(1, 1), (1, 1)], policy=policy, mesh=mesh)
     y, ns["bn1"] = batchnorm(blk.bn1, y, train, mesh=mesh)
     y = torch.relu(y)
-    y = conv2d(y, blk.conv2, policy=policy)
+    y = conv2d(y, blk.conv2, policy=policy, mesh=mesh)
     y, ns["bn2"] = batchnorm(blk.bn2, y, train, mesh=mesh)
     if blk.downsample is not None:
         sc = conv2d(x, blk.downsample[0], stride=blk.stride,
-                    padding="VALID", policy=policy)
+                    padding="VALID", policy=policy, mesh=mesh)
         sc, ns["down_bn"] = batchnorm(blk.downsample[1], sc, train,
                                       mesh=mesh)
     else:
@@ -129,7 +129,7 @@ def resnet18_encoder_apply(enc: ResNet18Encoder, x: torch.Tensor,
     stats."""
     ns: Dict[str, Any] = {}
     y = conv2d(x, enc.conv1, stride=2, padding=[(3, 3), (3, 3)],
-               policy=policy)
+               policy=policy, mesh=mesh)
     y, ns["bn1"] = batchnorm(enc.bn1, y, train, mesh=mesh)
     f1 = torch.relu(y)                                     # /2, 64
     y = max_pool2d(f1, 3, 2, padding=1)                    # /4, -inf pads
@@ -202,7 +202,7 @@ def decoder_apply(dec: UnetDecoder, head: Conv2d,
         # never fused: the JAX decoder does not pass fused=True
         # (unet_convlstm_tpu/models/resnet_unet.py:181-183)
         y, ns[f"block{i}"] = double_conv(blk, y, train, policy, mesh=mesh)
-    return conv2d(y, head, policy=policy), ns
+    return conv2d(y, head, policy=policy, mesh=mesh), ns
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +277,8 @@ def resnet_unet_apply(m: PretrainedTemporalUNet, x_seq: torch.Tensor,
     new_state, {"encoder", "decoder"} BN stats). H and W must be divisible
     by 32. ``use_pallas`` runs every ConvLSTM's gate update through its
     kernel. ``mesh``: train-mode BatchNorm over the data-parallel global
-    batch."""
+    batch, and the model's tensor-parallel shards column-parallel over
+    its model group."""
     cfg = m.cfg
     B, T = x_seq.shape[0], x_seq.shape[1]
     x_bt = flatten_seq(x_seq)
@@ -296,7 +297,7 @@ def resnet_unet_apply(m: PretrainedTemporalUNet, x_seq: torch.Tensor,
     for key, lstm, i in recurrences:
         out, new_state[key] = convlstm(
             lstm, to_time_major(feats[i], B, T), state=state.get(key),
-            policy=policy, use_pallas=use_pallas)
+            policy=policy, use_pallas=use_pallas, mesh=mesh)
         feats[i] = to_batch_major(out, B, T).to(x_bt.dtype)
 
     y_bt, dec_stats = decoder_apply(m.decoder, m.segmentation_head[0],

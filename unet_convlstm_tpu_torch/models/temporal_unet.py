@@ -122,7 +122,7 @@ def _encode(m: TemporalUNetDualView, x_bt, train: bool, policy: Policy,
     x3, ns["down3"] = down(m.down3, x2, train, policy, fused, mesh)
     xb, ns["bottleneck"] = down(m.bottleneck, x3, train, policy, fused, mesh)
     if m.cfg.use_attention:
-        xb = spatial_attention(m.attention, xb, policy)
+        xb = spatial_attention(m.attention, xb, policy, mesh)
     return xb, (x3, x2, x1, x0), ns
 
 
@@ -134,7 +134,7 @@ def _decode(m: TemporalUNetDualView, xb_bt, skips_bt, train: bool,
     d2, ns["up2"] = up(m.up2, d3, x2, train, policy, fused, mesh)
     d1, ns["up1"] = up(m.up1, d2, x1, train, policy, fused, mesh)
     d0, ns["up0"] = up(m.up0, d1, x0, train, policy, fused, mesh)
-    return out_conv(m.outc, d0, policy), ns
+    return out_conv(m.outc, d0, policy, mesh), ns
 
 
 def temporal_unet_apply(m: TemporalUNetDualView, x_seq: torch.Tensor,
@@ -155,7 +155,9 @@ def temporal_unet_apply(m: TemporalUNetDualView, x_seq: torch.Tensor,
     ``flat_layout`` options tune XLA's scan, autodiff and sharding and have
     no counterpart here yet.) ``mesh`` (``parallel.Mesh``): x_seq is this
     rank's rows of a data-parallel batch, and train-mode BatchNorm takes
-    the global batch's statistics."""
+    the global batch's statistics; the model's tensor-parallel shards
+    (``parallel.tensor.shard_model``) run column-parallel over the mesh's
+    model group."""
     cfg = m.cfg
     B, T = x_seq.shape[0], x_seq.shape[1]
     fused = use_fused_doubleconv
@@ -166,17 +168,17 @@ def temporal_unet_apply(m: TemporalUNetDualView, x_seq: torch.Tensor,
     state = state or {}
     xb_out_tm, new_temporal = convlstm(
         m.temporal, to_time_major(xb, B, T), state=state.get("temporal"),
-        policy=policy, use_pallas=use_pallas)
+        policy=policy, use_pallas=use_pallas, mesh=mesh)
     new_state: Dict[str, Any] = {"temporal": new_temporal}
 
     x3, x2, x1, x0 = skips
     if cfg.use_skip_lstm:
         x3_out, new_state["skip3"] = convlstm(
             m.lstm_skip3, to_time_major(x3, B, T), state=state.get("skip3"),
-            policy=policy, use_pallas=use_pallas)
+            policy=policy, use_pallas=use_pallas, mesh=mesh)
         x2_out, new_state["skip2"] = convlstm(
             m.lstm_skip2, to_time_major(x2, B, T), state=state.get("skip2"),
-            policy=policy, use_pallas=use_pallas)
+            policy=policy, use_pallas=use_pallas, mesh=mesh)
         x3 = to_batch_major(x3_out, B, T)
         x2 = to_batch_major(x2_out, B, T)
 

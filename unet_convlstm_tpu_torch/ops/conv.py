@@ -12,6 +12,11 @@ outside any Pallas kernel. ``conv2d`` and ``conv_transpose2d`` take either
 a weight tensor (and bias) or the conv module itself; a module holding int8
 weights (``ops/quant.quantize_model``) goes to the int8 path, K8 on the
 card, as the JAX functions dispatch on ``w_q``.
+
+With a tensor-parallel ``mesh``, a weight that is this rank's block of
+output channels (``parallel.tensor.shard_model``) runs column-parallel:
+the rank's output block is gathered over the model group before the
+whole bias is added (``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from torch import nn
 
 from ..core.dtypes import DEFAULT_POLICY, Policy, full_fp32
 from ..parallel.mesh import global_sum
+from ..parallel.tensor import copy_to_model, gather_from_model, shard_mesh
 
 Padding = Union[str, int, Sequence[Tuple[int, int]]]
 
@@ -125,13 +131,14 @@ def resolve_pads(hw: Tuple[int, int], kernel: Tuple[int, int], stride: int,
 def conv2d(x: torch.Tensor, weight: Union[torch.Tensor, nn.Module],
            bias: Optional[torch.Tensor] = None, stride: int = 1,
            padding: Padding = "SAME",
-           policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
+           policy: Policy = DEFAULT_POLICY, mesh=None) -> torch.Tensor:
     """NHWC conv with an OIHW weight, or with a conv module (its weight
     and bias). ``padding``: "SAME", "VALID", an int, or explicit [(lo,
     hi), (lo, hi)]. The output stays in the compute dtype and the bias is
     added in that dtype after the conv, as in the JAX package (not inside
     cuDNN's f32 epilogue). A module with int8 weights runs
-    ``ops.quant.conv2d_int8``."""
+    ``ops.quant.conv2d_int8``. ``mesh``: a weight shard runs
+    column-parallel over its model group (the module's docstring)."""
     if isinstance(weight, nn.Module):
         if not weight.weight.is_floating_point():
             from .quant import conv2d_int8
@@ -140,8 +147,11 @@ def conv2d(x: torch.Tensor, weight: Union[torch.Tensor, nn.Module],
             return conv2d_int8(weight, x, stride, pads,
                                out_dtype=policy.compute_dtype)
         weight, bias = weight.weight, weight.bias
+    tp = shard_mesh(weight, mesh)
     w = policy.cast_param(weight)
     x = policy.cast_input(x)
+    if tp is not None:
+        x = copy_to_model(x, tp)
     pads = resolve_pads(x.shape[1:3], w.shape[2:], stride, padding)
     xt = _to_nchw(x)
     (ph0, ph1), (pw0, pw1) = pads
@@ -153,6 +163,8 @@ def conv2d(x: torch.Tensor, weight: Union[torch.Tensor, nn.Module],
     with policy.precision():
         y = _backward_in_fp32(F.conv2d(xt, w, None, stride, pad_arg), policy)
     y = _to_nhwc(y)
+    if tp is not None:
+        y = gather_from_model(y, tp)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
@@ -164,23 +176,29 @@ def conv2d(x: torch.Tensor, weight: Union[torch.Tensor, nn.Module],
 
 def conv_transpose2d(x: torch.Tensor, weight: Union[torch.Tensor, nn.Module],
                      bias: Optional[torch.Tensor] = None, stride: int = 2,
-                     policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
+                     policy: Policy = DEFAULT_POLICY,
+                     mesh=None) -> torch.Tensor:
     """NHWC transposed conv, weight [in, out, kh, kw] or a transposed-conv
     module; for kernel = stride = 2 it doubles H and W. Bias added in the
     compute dtype. A module with int8 weights runs
-    ``ops.quant.conv_transpose2d_int8``."""
+    ``ops.quant.conv_transpose2d_int8``. ``mesh``: as ``conv2d``'s."""
     if isinstance(weight, nn.Module):
         if not weight.weight.is_floating_point():
             from .quant import conv_transpose2d_int8
             return conv_transpose2d_int8(weight, x, stride,
                                          out_dtype=policy.compute_dtype)
         weight, bias = weight.weight, weight.bias
+    tp = shard_mesh(weight, mesh)
     w = policy.cast_param(weight)
     x = policy.cast_input(x)
+    if tp is not None:
+        x = copy_to_model(x, tp)
     with policy.precision():
         y = _backward_in_fp32(F.conv_transpose2d(_to_nchw(x), w, None, stride),
                               policy)
     y = _to_nhwc(y)
+    if tp is not None:
+        y = gather_from_model(y, tp)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y

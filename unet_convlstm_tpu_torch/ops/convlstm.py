@@ -12,6 +12,11 @@
 * A cell quantized by ``ops/quant.quantize_model`` (int8 weights) runs the
   concatenated [x, h] gate conv through the int8 path every step, with no
   hoisted input projection, and its gate update as a float cell does.
+* ``mesh``: a cell whose gate conv weight is a tensor-parallel shard
+  (``parallel.tensor.shard_model``; its 4*hidden output channels split
+  over the model group) computes its block of the gates, and the blocks
+  are gathered before the gate update, which every model rank runs on the
+  whole gates.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from torch import nn
 from ..core.dtypes import DEFAULT_POLICY, Policy
 from .conv import Conv2d, conv2d
 from .kernels.convlstm_fused import fused_gate_update
+from ..parallel.tensor import as_shard_of, shard_mesh
 
 Carry = Tuple[torch.Tensor, torch.Tensor]  # (h, c), each [B, H, W, hidden]
 
@@ -77,14 +83,15 @@ def _h_dtype(policy: Policy) -> torch.dtype:
 def convlstm_cell_step(weight, bias: Optional[torch.Tensor],
                        x: torch.Tensor, carry: Carry,
                        policy: Policy = DEFAULT_POLICY,
-                       use_pallas: bool = False
+                       use_pallas: bool = False, mesh=None
                        ) -> Tuple[torch.Tensor, Carry]:
     """One recurrent step. x [B,H,W,Cin]; carry h, c [B,H,W,hidden];
     weight [4*hidden, Cin+hidden, k, k], or the cell's conv module (an
-    int8 one runs the int8 conv; ``bias`` is then None)."""
+    int8 one runs the int8 conv; ``bias`` is then None). ``mesh``: a
+    weight shard's gates gathered over the model group."""
     h, c = carry
     gates = conv2d(torch.cat([x, h.to(x.dtype)], dim=-1), weight, bias,
-                   policy=policy)
+                   policy=policy, mesh=mesh)
     h_next, c_next = _gate_update(gates, c, use_pallas, policy.accum_dtype)
     h_next = h_next.to(_h_dtype(policy))
     return h_next, (h_next, c_next)
@@ -108,18 +115,23 @@ def convlstm_zero_state(batch: int, height: int, width: int, hidden_dim: int,
 def convlstm(module: ConvLSTM, x_seq: torch.Tensor,
              state: Optional[List[Carry]] = None,
              policy: Policy = DEFAULT_POLICY,
-             use_pallas: bool = False) -> Tuple[torch.Tensor, List[Carry]]:
+             use_pallas: bool = False,
+             mesh=None) -> Tuple[torch.Tensor, List[Carry]]:
     """Run the stack over a time-major sequence.
 
     x_seq [T, B, H, W, Cin] → (out_seq [T, B, H, W, hidden], final states).
     ``state`` carries one (h, c) per layer across calls (streaming); it is
-    coerced to h in the compute dtype and c in f32."""
+    coerced to h in the compute dtype and c in f32. ``mesh``: see the
+    module's docstring."""
     # imported here: the models package imports this module
     from ..models.layout import to_batch_major, to_time_major
 
     T, B, H, W, _ = x_seq.shape
     # from the gate conv's weight, float or int8: [4*hidden, in+hidden, k, k]
-    hidden = module.layers[0].conv.weight.shape[0] // 4
+    # (a tensor-parallel shard holds 4*hidden / M of the rows)
+    w0 = module.layers[0].conv.weight
+    tp = shard_mesh(w0, mesh)
+    hidden = w0.shape[0] * (tp.model if tp is not None else 1) // 4
     if state is None:
         state = [(torch.zeros((B, H, W, hidden), dtype=_h_dtype(policy),
                               device=x_seq.device),
@@ -144,23 +156,27 @@ def convlstm(module: ConvLSTM, x_seq: torch.Tensor,
             # conv through the int8 path (the JAX package does the same)
             w, b, hoist = cell.conv, None, False
         else:
-            w = policy.cast_param(cell.conv.weight)   # [4h, in+h, k, k]
+            w = as_shard_of(policy.cast_param(cell.conv.weight),
+                            cell.conv.weight)          # [4h, in+h, k, k]
             b = policy.cast_param(cell.conv.bias)
             in_dim = w.shape[1] - hidden
-            w_x_bytes = (w.shape[2] * w.shape[3] * in_dim * w.shape[0]
+            # the whole gate conv's widths, so that a tensor-parallel cell
+            # takes the route one process takes
+            w_x_bytes = (w.shape[2] * w.shape[3] * in_dim * 4 * hidden
                          * itemsize)
             gate_step_bytes = B * H * W * 4 * hidden * itemsize
             hoist = _hoist_input_projection(w_x_bytes, gate_step_bytes)
         if hoist:
             # conv is linear in its input channels:
             # conv(concat(x, h), W) + b == conv(x, W_x) + b + conv(h, W_h)
-            w_x = w[:, :in_dim].contiguous(memory_format=cl)
-            w_h = w[:, in_dim:].contiguous(memory_format=cl)
-            x_proj = conv2d(to_batch_major(out, B, T), w_x, b, policy=policy)
+            w_x = as_shard_of(w[:, :in_dim].contiguous(memory_format=cl), w)
+            w_h = as_shard_of(w[:, in_dim:].contiguous(memory_format=cl), w)
+            x_proj = conv2d(to_batch_major(out, B, T), w_x, b, policy=policy,
+                            mesh=mesh)
             x_proj = to_time_major(x_proj, B, T)
             for t in range(T):
                 h, c = carry
-                gates = x_proj[t] + conv2d(h, w_h, policy=policy)
+                gates = x_proj[t] + conv2d(h, w_h, policy=policy, mesh=mesh)
                 h_next, c_next = _gate_update(gates, c, use_pallas,
                                               policy.accum_dtype)
                 h_next = h_next.to(_h_dtype(policy))
@@ -168,10 +184,10 @@ def convlstm(module: ConvLSTM, x_seq: torch.Tensor,
                 steps.append(h_next)
         else:
             if isinstance(w, torch.Tensor):
-                w = w.contiguous(memory_format=cl)
+                w = as_shard_of(w.contiguous(memory_format=cl), w)
             for t in range(T):
                 h_t, carry = convlstm_cell_step(w, b, out[t], carry, policy,
-                                                use_pallas)
+                                                use_pallas, mesh)
                 steps.append(h_t)
         out = torch.stack(steps)
         new_states.append(carry)

@@ -234,9 +234,15 @@ def _conv_sites(model: nn.Module):
 def quantize_model(model: nn.Module) -> nn.Module:
     """A NEW model with every conv int8-quantized (the counterpart of
     ``quantize_tree``); ``model`` is left untouched. Each conv gets the
-    next site id in definition order."""
+    next site id in definition order. A tensor-parallel model's shards
+    are refused: quantize the whole model."""
+    from ..parallel.tensor import model_axis
     from .conv import ConvTranspose2d
 
+    if any(model_axis(p) is not None for p in model.parameters()):
+        raise ValueError("quantize_model takes a whole model, not a "
+                         "tensor-parallel shard of one (gather it with "
+                         "parallel.full_state_dict)")
     q = copy.deepcopy(model)
     for site, (parent, attr, conv) in enumerate(_conv_sites(q)):
         bias = None if conv.bias is None else conv.bias.detach().float()

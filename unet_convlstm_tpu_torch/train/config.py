@@ -11,21 +11,19 @@ Keys the port accepts with another meaning, or none yet:
 * ``flat_layout``, ``unroll``, ``remat``: XLA's sequence-flatten layout,
   scan unroll and ``jax.checkpoint``. Accepted and without effect yet
   (ROADMAP.md, queue A item 7c).
-* ``mesh_data`` > 1: data-parallel training over that many processes,
-  launched with torchrun (one process a card, or CPU processes), with
-  ``zero1`` splitting the AdamW moments over them. ``mesh_data`` None or 1
-  means one process. ``mesh_model`` > 1 (tensor parallel) raises (item
-  7b).
+* ``mesh_data`` and ``mesh_model``: the ``(data, model)`` mesh, as in the
+  JAX package. ``mesh_data`` > 1 trains data parallel; ``mesh_model`` > 1
+  splits every conv kernel by output channel over that many ranks, with
+  its AdamW moments (tensor parallel, ``parallel/tensor.py``). The run
+  takes ``mesh_data x mesh_model`` processes, launched with torchrun (one
+  process a card, or CPU processes); ``zero1`` splits the AdamW moments
+  over the data ranks on top. ``mesh_data`` None means ``mesh_data`` 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional
-
-TENSOR_PARALLEL = ("tensor-parallel training (mesh_model > 1) is not "
-                   "ported to unet_convlstm_tpu_torch yet (ROADMAP.md, "
-                   "queue A item 7b)")
 
 
 @dataclasses.dataclass
@@ -131,8 +129,9 @@ class TrainConfig:
 
 
 def check_mesh(cfg: TrainConfig) -> None:
-    """Raise for the mesh keys the port cannot run yet (tensor
-    parallelism); data parallelism and ZeRO-1 run."""
-    if cfg.mesh_model > 1:
-        raise NotImplementedError(
-            f"{TENSOR_PARALLEL}: mesh_model={cfg.mesh_model}")
+    """Raise for mesh keys that name no mesh: degrees below 1. Data
+    parallelism, tensor parallelism and ZeRO-1 run."""
+    if cfg.mesh_model < 1 or (cfg.mesh_data is not None
+                              and cfg.mesh_data < 1):
+        raise ValueError(f"mesh_data={cfg.mesh_data} mesh_model="
+                         f"{cfg.mesh_model}: the degrees must be >= 1")

@@ -31,6 +31,14 @@ checkpoint, an optional periodic ``_last`` checkpoint and the final one.
   moments over the ranks. Only rank 0 writes checkpoints, history.csv and
   the log; every rank runs the same epochs, decisions included, since each
   reads the same reduced numbers.
+* ``mesh_model`` > 1: tensor parallel, as the JAX ``fit`` builds it: the
+  mesh is ``mesh_data x mesh_model`` processes, the model's state is
+  sharded by ``MeshRules(shard_model_channels=True, shard_opt_state_data=
+  zero1).tree_sharding`` (each conv kernel and its AdamW moments split by
+  output channel over the model ranks, ZeRO-1 on top), and the train and
+  eval steps take that sharding. Checkpoints stay one process's: the
+  shards and moments are gathered before global rank 0 writes, and a
+  resume (or a guard rollback) narrows them again.
 """
 
 from __future__ import annotations
@@ -50,7 +58,9 @@ from ..core.dtypes import resolve_device
 from ..data.npz_dataset import NPZSequenceDataset
 from ..data.pipeline import SequenceLoader, pad_batch, prefetch_to_device
 from ..models.registry import build_model
-from ..parallel.mesh import make_mesh
+from ..parallel.mesh import MeshRules, make_mesh
+from ..parallel.tensor import (full_state_dict, load_full_state_dict,
+                               shard_model)
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .config import TrainConfig, check_mesh
 from .metrics import MetricSums, metric_sums_finalize, metric_sums_init
@@ -77,18 +87,19 @@ def _clone(t: torch.Tensor) -> torch.Tensor:
     return t.detach().clone()
 
 
-def _snap_take(model, opt, mode: str):
-    """The guard's rollback snapshot of the model and optimizer state.
-    ``device``: copies on the card (one more state in device memory).
-    ``host``: copies in host memory."""
+def _snap_take(model, opt, mode: str, mesh=None):
+    """The guard's rollback snapshot of the model and optimizer state, as
+    one process's (tensor-parallel shards gathered). ``device``: copies on
+    the card (one more state in device memory). ``host``: copies in host
+    memory."""
     fn = _clone if mode == "device" else (
         lambda t: t.detach().to("cpu", copy=True))
-    return (_map_tensors(model.state_dict(), fn),
+    return (_map_tensors(full_state_dict(model, mesh), fn),
             _map_tensors(opt.state_dict(), fn))
 
 
-def _snap_restore(model, opt, snap) -> None:
-    model.load_state_dict(snap[0])
+def _snap_restore(model, opt, snap, mesh=None) -> None:
+    load_full_state_dict(model, snap[0], mesh)
     # copy again: the optimizer updates its moments in place, and the
     # snapshot must survive for a possible second rollback
     opt.load_state_dict(_map_tensors(snap[1], _clone))
@@ -186,21 +197,25 @@ class _Profiler:
 
 
 def _run_mesh(cfg: TrainConfig, group):
-    """The data-parallel mesh of the run, or None for one process."""
+    """The ``(mesh_data, mesh_model)`` mesh of the run, or None for one
+    process."""
     check_mesh(cfg)
-    n_data = cfg.mesh_data or 1
+    n_data, n_model = cfg.mesh_data or 1, cfg.mesh_model
+    n = n_data * n_model
     world = os.environ.get("WORLD_SIZE")
-    if world is not None and int(world) != n_data:
+    if world is not None and int(world) != n:
         raise ValueError(f"WORLD_SIZE={world} but mesh_data="
-                         f"{cfg.mesh_data}: launch one process a data rank "
-                         f"(torchrun --nproc-per-node {n_data})")
-    if group is None and n_data > 1:
+                         f"{cfg.mesh_data} x mesh_model={n_model}: launch "
+                         f"one process a rank (torchrun --nproc-per-node "
+                         f"{n})")
+    if group is None and n > 1:
         if not dist.is_initialized():
-            raise ValueError(f"mesh_data={n_data} needs a torch.distributed "
-                             f"process group of {n_data} ranks: launch the "
-                             f"run under torchrun")
+            raise ValueError(f"mesh_data={n_data} x mesh_model={n_model} "
+                             f"needs a torch.distributed process group of "
+                             f"{n} ranks: launch the run under torchrun")
         group = dist.group.WORLD
-    return None if group is None else make_mesh(n_data, group=group)
+    return None if group is None else make_mesh(n_data, n_model,
+                                                group=group)
 
 
 def fit(cfg: TrainConfig, dataset: Optional[NPZSequenceDataset] = None,
@@ -213,10 +228,11 @@ def fit(cfg: TrainConfig, dataset: Optional[NPZSequenceDataset] = None,
 
     ``resume_from``: a training checkpoint (``.pt``) — restores weights, BN
     stats, optimizer, scheduler and guard state and continues from the
-    saved epoch (at the same data degree). Runs on the card unless
-    ``device`` names another. ``group``: the process group of a
-    data-parallel run (``mesh_data`` ranks; torchrun's default group when
-    None)."""
+    saved epoch. Runs on the card unless ``device`` names another.
+    ``group``: the process group of a parallel run (``mesh_data x
+    mesh_model`` ranks; torchrun's default group when None). The returned
+    model holds this rank's shards under tensor parallelism
+    (``parallel.tensor.full_state_dict`` gathers it)."""
     dev = resolve_device(device)
     mesh = _run_mesh(cfg, group)
     with deterministic(dev):
@@ -275,6 +291,13 @@ def _fit(cfg, dataset, epochs, verbose, profile_dir, resume_from, dev,
     apply_fn = functools.partial(apply_fn, use_pallas=True,
                                  use_fused_doubleconv=True)
     model = init_fn(torch.Generator().manual_seed(cfg.seed), device=dev)
+    sharding = None
+    if mesh is not None and mesh.model > 1:
+        # every rank draws the same init; each keeps its shards
+        sharding = MeshRules(mesh, shard_model_channels=True,
+                             shard_opt_state_data=cfg.zero1
+                             ).tree_sharding(model.state_dict())
+        shard_model(model, sharding)
     opt = make_optimizer(model.named_parameters(), cfg.lr, cfg.weight_decay,
                          cfg.grad_clip,
                          trainable_mask=_trainable_mask(model, cfg.model),
@@ -283,9 +306,9 @@ def _fit(cfg, dataset, epochs, verbose, profile_dir, resume_from, dev,
     train_step = make_train_step(
         apply_fn, dataset.stats, use_mask=cfg.use_mask,
         guard_nonfinite_stats=cfg.skip_nonfinite_updates is not None,
-        accum_steps=cfg.accum_steps, mesh=mesh)
+        accum_steps=cfg.accum_steps, mesh=mesh, state_sharding=sharding)
     eval_step = make_eval_step(apply_fn, dataset.stats, use_mask=cfg.use_mask,
-                               mesh=mesh)
+                               mesh=mesh, variables_sharding=sharding)
     scheduler = ReduceLROnPlateau(cfg.lr, cfg.plateau_factor,
                                   cfg.plateau_patience, min_lr=cfg.min_lr)
     guard = None
@@ -302,7 +325,7 @@ def _fit(cfg, dataset, epochs, verbose, profile_dir, resume_from, dev,
         if "optimizer" not in meta:
             raise ValueError(f"{resume_from}: not a training checkpoint (no "
                              "optimizer state to resume)")
-        model.load_state_dict(model_state)
+        load_full_state_dict(model, model_state, mesh)
         opt.load_state_dict(meta["optimizer"])
         if "scheduler" in meta:
             scheduler.load_state_dict(meta["scheduler"])
@@ -315,7 +338,7 @@ def _fit(cfg, dataset, epochs, verbose, profile_dir, resume_from, dev,
             f"(best val {best_val:.4f}, lr {scheduler.lr:.2e})")
 
     # the last healthy end-of-epoch (state, scheduler, epoch) for rollback
-    snapshot = ((*_snap_take(model, opt, cfg.guard_snapshot),
+    snapshot = ((*_snap_take(model, opt, cfg.guard_snapshot, mesh),
                  scheduler.state_dict(), start_epoch - 1)
                 if guard is not None else None)
 
@@ -358,8 +381,8 @@ def _fit(cfg, dataset, epochs, verbose, profile_dir, resume_from, dev,
             model_state, _checkpoint_config(cfg), norm_dict, **extra)
 
     def save_now(tag, epoch):
-        # every rank: the optimizer's state_dict gathers ZeRO-1's moments
-        save(tag, model.state_dict(), opt.state_dict(), epoch,
+        # every rank: the state dicts gather the shards and ZeRO-1's moments
+        save(tag, full_state_dict(model, mesh), opt.state_dict(), epoch,
              scheduler.state_dict(),
              guard.state_dict() if guard is not None else None)
 
@@ -428,7 +451,7 @@ def _fit(cfg, dataset, epochs, verbose, profile_dir, resume_from, dev,
                                  {"recent": [], "n_events": 0,
                                   "consecutive": 0})
                         raise
-                    _snap_restore(model, opt, snapshot)
+                    _snap_restore(model, opt, snapshot, mesh)
                     scheduler.load_state_dict(snapshot[2])
                     # compound the cut across CONSECUTIVE rollbacks
                     scheduler.lr = max(
@@ -475,7 +498,8 @@ def _fit(cfg, dataset, epochs, verbose, profile_dir, resume_from, dev,
                 f"| lr={lr:.2e} ({tr_time:.1f}s)")
 
             if guard is not None:  # a healthy epoch: the new rollback point
-                snapshot = (*_snap_take(model, opt, cfg.guard_snapshot),
+                snapshot = (*_snap_take(model, opt, cfg.guard_snapshot,
+                                        mesh),
                             scheduler.state_dict(), epoch)
 
             if val_loss < best_val:

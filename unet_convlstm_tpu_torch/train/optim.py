@@ -30,6 +30,15 @@ unet_convlstm_tpu/train/optim.py, which builds the same chain from optax).
   every rank's parameter. ``state_dict`` gathers the moments (a checkpoint
   holds the replicated optimizer's tensors) and ``load_state_dict`` slices
   them again.
+* Tensor parallelism (a ``mesh`` with ``model`` > 1 and a model narrowed
+  by ``parallel.tensor.shard_model``): a shard's moments are the shard's
+  own, and ZeRO-1 splits them over 'data' on the axis the composed JAX
+  rule picks (never the 'model' one). The global norm adds the shards'
+  squared norms over the model group to the replicated leaves' (counted
+  once), and the non-finite verdict is agreed over the model group, so
+  every rank clips and skips alike. ``state_dict`` gathers the shards'
+  moments too (a one-process optimizer's tensors), and
+  ``load_state_dict`` narrows them.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import MeshRules
+from ..parallel.tensor import model_axis
 
 
 def all_finite(grads: List[torch.Tensor]) -> bool:
@@ -48,13 +58,23 @@ def all_finite(grads: List[torch.Tensor]) -> bool:
     return bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Optional[List[bool]] = None,
+                         mesh=None) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` in place; returns the norm. No host
-    synchronisation: the scale is chosen on the device."""
+    synchronisation: the scale is chosen on the device. ``sharded``
+    (with a tensor-parallel ``mesh``): which gradients are model shards,
+    whose squared norms are summed over the model group."""
     if not grads:
         return torch.zeros(())
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norms = torch.stack(torch._foreach_norm(grads))
+    if mesh is None or mesh.model == 1 or not any(sharded or ()):
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        sq = norms.square()
+        mask = torch.tensor(sharded, device=sq.device)
+        norm = (sq[~mask].sum()
+                + mesh.all_reduce(sq[mask].sum(), axis="model")).sqrt()
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     torch._foreach_mul_(grads, scale)
@@ -78,15 +98,24 @@ class Optimizer:
         self.grad_clip = grad_clip
         self.skip_nonfinite = skip_nonfinite
         self.mesh = mesh
+        # tensor parallelism: (index in trainable, model axis) of the shards
+        self.model_shards = [(i, model_axis(p))
+                             for i, p in enumerate(self.trainable)
+                             if model_axis(p) is not None]
+        if self.model_shards and (mesh is None or mesh.model == 1):
+            raise ValueError("a model with tensor-parallel shards needs its "
+                             "mesh (mesh= with model > 1)")
+        self.sharded = [model_axis(p) is not None for p in self.trainable]
         # ZeRO-1: (index in trainable, parameter, axis, this rank's slice);
         # AdamW steps the slice in the parameter's place
         self.shards: List[Tuple[int, nn.Parameter, int, torch.Tensor]] = []
         stepped = list(self.trainable)
         if zero1 and mesh is not None and mesh.distributed:
-            rules = MeshRules(mesh, shard_opt_state_data=True)
+            rules = MeshRules(mesh, shard_model_channels=mesh.model > 1,
+                              shard_opt_state_data=True)
             for i, (n, p) in enumerate((n, p) for n, p in named
                                        if mask.get(n, True)):
-                axis = rules.zero1_axis(n, p)
+                axis = rules.zero1_axis(n, _whole(p, mesh))
                 if axis is not None:
                     shard = self._slice(p.detach(), axis).clone()
                     self.shards.append((i, p, axis, shard))
@@ -105,12 +134,22 @@ class Optimizer:
     def grads(self) -> List[torch.Tensor]:
         return [p.grad for p in self.params if p.grad is not None]
 
+    def grads_finite(self) -> bool:
+        """Whether every gradient is finite, agreed over the model group
+        under tensor parallelism (a shard's verdict is its own)."""
+        grads = self.grads()
+        if not self.model_shards:
+            return all_finite(grads)
+        bad = torch.stack([~torch.isfinite(g).all() for g in grads]
+                          ).sum().float() if grads else torch.zeros(())
+        return float(self.mesh.all_reduce(bad, axis="model")) == 0
+
     def step(self) -> bool:
         """One update from the current gradients; returns whether it was
         applied. A trainable parameter without a gradient counts as a zero
         gradient, as in optax (its moments decay, weight decay applies)."""
         if self.skip_nonfinite is not None:
-            if all_finite(self.grads()):
+            if self.grads_finite():
                 self.notfinite_count = 0
             else:
                 self.notfinite_count += 1
@@ -121,7 +160,7 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         clip_by_global_norm_([p.grad for p in self.trainable],
-                             self.grad_clip)
+                             self.grad_clip, self.sharded, self.mesh)
         with torch.no_grad():
             for _, p, axis, shard in self.shards:
                 # the parameter may have been loaded since the last step
@@ -136,36 +175,36 @@ class Optimizer:
         return True
 
     def _slice(self, t: torch.Tensor, axis: int) -> torch.Tensor:
-        n = t.shape[axis] // self.mesh.data
-        return t.narrow(axis, self.mesh.rank * n, n)
+        return self.mesh.block(t, axis)
 
     def _gather(self, slices: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The whole tensors of the ranks' slices (one all-gather): each
-        slice of ``self.shards``' layout, concatenated in rank order."""
-        flat = self.mesh.all_gather(
-            torch.cat([s.reshape(-1) for s in slices]))
-        ranks = flat.view(self.mesh.data, -1)
-        out, off = [], 0
-        for (_, _, axis, _), s in zip(self.shards, slices):
-            n = s.numel()
-            out.append(torch.cat([r[off:off + n].view(s.shape)
-                                  for r in ranks], dim=axis))
-            off += n
-        return out
+        """The whole tensors of the data ranks' slices (one all-gather),
+        each of ``self.shards``' layout."""
+        return self.mesh.gather_blocks(
+            slices, [axis for _, _, axis, _ in self.shards])
 
     def state_dict(self) -> Dict:
         """AdamW's moments, step and learning rate, and the skip counters
         (live tensors: copy before mutating). Under ZeRO-1 the moments are
         gathered from the ranks (a collective: every rank calls it), so the
-        dict holds what the replicated optimizer would."""
+        dict holds what the replicated optimizer would; under tensor
+        parallelism the shards' moments are gathered too, so it holds what
+        one process's optimizer would."""
         adamw = self.adamw.state_dict()
-        if self.shards and adamw["state"]:
+        if (self.shards or self.model_shards) and adamw["state"]:
             state = {i: dict(st) for i, st in adamw["state"].items()}
             for key in ("exp_avg", "exp_avg_sq"):
-                full = self._gather([state[i][key]
-                                     for i, _, _, _ in self.shards])
-                for (i, _, _, _), t in zip(self.shards, full):
-                    state[i][key] = t
+                if self.shards:
+                    full = self._gather([state[i][key]
+                                         for i, _, _, _ in self.shards])
+                    for (i, _, _, _), t in zip(self.shards, full):
+                        state[i][key] = t
+                if self.model_shards:
+                    full = self.mesh.gather_blocks(
+                        [state[i][key] for i, _ in self.model_shards],
+                        [a for _, a in self.model_shards], "model")
+                    for (i, _), t in zip(self.model_shards, full):
+                        state[i][key] = t
             adamw = {**adamw, "state": state}
         return {"adamw": adamw,
                 "notfinite_count": self.notfinite_count,
@@ -174,10 +213,15 @@ class Optimizer:
     def load_state_dict(self, d: Dict) -> None:
         """Restore a ``state_dict`` of an optimizer over the same trainable
         parameters; the moments move to the parameters' device. Under
-        ZeRO-1 each rank keeps its slices of the moments."""
+        tensor parallelism each rank keeps its shards' blocks, and under
+        ZeRO-1 its slices of those."""
         adamw = d["adamw"]
-        if self.shards and adamw["state"]:
+        if (self.shards or self.model_shards) and adamw["state"]:
             state = {i: dict(st) for i, st in adamw["state"].items()}
+            for i, axis in self.model_shards:
+                for key in ("exp_avg", "exp_avg_sq"):
+                    state[i][key] = self.mesh.block(state[i][key], axis,
+                                                    "model")
             for i, _, axis, _ in self.shards:
                 for key in ("exp_avg", "exp_avg_sq"):
                     state[i][key] = self._slice(state[i][key], axis).clone()
@@ -185,6 +229,18 @@ class Optimizer:
         self.adamw.load_state_dict(adamw)
         self.notfinite_count = int(d["notfinite_count"])
         self.total_notfinite = int(d["total_notfinite"])
+
+
+def _whole(p: torch.Tensor, mesh) -> torch.Tensor:
+    """A tensor of the whole parameter's shape (on the meta device) for
+    a tensor-parallel shard, the parameter itself otherwise: the
+    partition rules read the whole shape."""
+    axis = model_axis(p)
+    if axis is None:
+        return p
+    shape = list(p.shape)
+    shape[axis] *= mesh.model
+    return torch.empty(shape, dtype=p.dtype, device="meta")
 
 
 def make_optimizer(named_params: Iterable[Tuple[str, nn.Parameter]],

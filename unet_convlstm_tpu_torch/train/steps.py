@@ -25,6 +25,18 @@ apply), the loss's means and masked denominators global (each rank's loss
 is its share), the gradients summed over the ranks once before the
 optimizer, the loss and the metric sums summed. Every rank ends with the
 same parameters, BatchNorm statistics and returned values.
+
+Tensor parallel (``state_sharding``, ``MeshRules(shard_model_channels=
+True).tree_sharding`` of the model's state, on a mesh with ``model`` > 1):
+the model holds its rank's shards (``parallel.tensor.shard_model``), and
+the step computes the same function. Each sharded conv runs
+column-parallel inside the model's apply (the mesh bound into it); the
+model ranks hold the same rows, so the loss, the BatchNorm statistics and
+the metric sums are summed over the data group only, as are the
+gradients: a shard's gradient is its own, and a replicated leaf's is
+already the whole one, the same bits on every model rank. The optimizer
+(built over the sharded model with the same mesh) clips by the global
+norm over the model group and agrees on the non-finite verdict.
 """
 
 from __future__ import annotations
@@ -38,9 +50,11 @@ from ..models.registry import bn_buffers, commit_bn_stats
 from ..ops.losses import compute_loss
 from ..ops.normalize import (NormStats, compute_mask, denormalize_y,
                              normalize_x, normalize_y)
-from ..parallel.mesh import MODEL_PARALLEL, Mesh, data_mesh, sum_gradients
+from ..parallel.mesh import (Mesh, data_mesh, resolve_sharding,
+                             sum_gradients)
+from ..parallel.tensor import check_sharded
 from .metrics import MetricSums, metric_sums_init, metric_sums_update
-from .optim import Optimizer, all_finite
+from .optim import Optimizer
 
 _MULTI_STEP = ("make_multi_train_step (K steps per dispatch, a lax.scan in "
                "the JAX package) is not ported to unet_convlstm_tpu_torch "
@@ -62,7 +76,7 @@ def _update_was_finite(opt: Optimizer) -> bool:
     two never disagree), else the gradients' finiteness."""
     if opt.skip_nonfinite is not None:
         return opt.notfinite_count == 0
-    return all_finite(opt.grads())
+    return opt.grads_finite()
 
 
 @torch.no_grad()
@@ -182,19 +196,35 @@ def make_train_step(apply_fn: Callable, norm_stats: NormStats,
     of B/accum_steps rows before the single update. ``mesh``: data
     parallel (see the module's docstring): x_raw and y_raw are this rank's
     rows, and the optimizer is built with the same mesh (its ZeRO-1 option
-    splits the moments over it). ``state_sharding`` (tensor-parallel
-    training) raises NotImplementedError (item 7b)."""
-    if state_sharding is not None:
-        raise NotImplementedError(MODEL_PARALLEL)
+    splits the moments over it). ``state_sharding``: tensor-parallel
+    training (see the module's docstring); its mesh stands in for a
+    missing ``mesh``, and the model passed to the step must hold the
+    shards it names."""
+    mesh, sharding = resolve_sharding(state_sharding, mesh, "state_sharding")
     mesh = data_mesh(mesh)
     if mesh is not None:
         apply_fn = functools.partial(apply_fn, mesh=mesh)
     if accum_steps > 1:
-        return _make_accum_step_core(apply_fn, norm_stats, use_mask,
+        step = _make_accum_step_core(apply_fn, norm_stats, use_mask,
                                      grad_weight, accum_steps,
                                      guard_nonfinite_stats, mesh)
-    return _make_step_core(apply_fn, norm_stats, use_mask, grad_weight,
-                           guard_nonfinite_stats, mesh)
+    else:
+        step = _make_step_core(apply_fn, norm_stats, use_mask, grad_weight,
+                               guard_nonfinite_stats, mesh)
+    return _checked(step, sharding)
+
+
+def _checked(step, sharding):
+    """``step`` that first checks its model holds ``sharding``'s shards."""
+    if sharding is None:
+        return step
+
+    @functools.wraps(step)
+    def checked(model, *args):
+        check_sharded(model, sharding)
+        return step(model, *args)
+
+    return checked
 
 
 def make_multi_train_step(*args, **kwargs):
@@ -212,17 +242,19 @@ def make_eval_step(apply_fn: Callable, norm_stats: NormStats,
     tail batch at full size, and they carry zero weight. ``mesh``: x_raw
     and y_raw are this rank's rows of the global batch, ``n_valid`` counts
     the global batch's real rows, and the loss and sums are the global
-    batch's. ``variables_sharding`` (tensor parallel) raises
-    NotImplementedError (item 7b)."""
-    if variables_sharding is not None:
-        raise NotImplementedError(MODEL_PARALLEL)
+    batch's. ``variables_sharding``: tensor parallel, as
+    ``make_train_step``'s ``state_sharding``."""
+    mesh, sharding = resolve_sharding(variables_sharding, mesh,
+                                      "variables_sharding")
     mesh = data_mesh(mesh)
+    if mesh is not None and mesh.model > 1:
+        apply_fn = functools.partial(apply_fn, mesh=mesh)
 
     @torch.inference_mode()
     def step(model, x_raw: torch.Tensor, y_raw: torch.Tensor,
              n_valid: int) -> Tuple[torch.Tensor, MetricSums]:
         B = x_raw.shape[0]
-        row0 = mesh.rank * B if mesh is not None else 0
+        row0 = mesh.data_rank * B if mesh is not None else 0
         valid = (torch.arange(row0, row0 + B, device=x_raw.device)
                  < n_valid).float()
         x = normalize_x(x_raw, norm_stats)
@@ -239,5 +271,5 @@ def make_eval_step(apply_fn: Callable, norm_stats: NormStats,
             return loss, sums
         return mesh.all_reduce(loss), _sum_sums(sums, mesh)
 
-    return step
+    return _checked(step, sharding)
 
