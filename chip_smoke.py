@@ -164,6 +164,25 @@ non-zero:
               ``rollout_scan`` against one process; gloo's CUDA support on
               the grid's groups. The ranks' step times share one card and
               are no tensor-parallel speed; multi-rank NCCL is unverified.
+19. mesh    — the rest of the mesh surface: make_multi_train_step at K=4
+              in one process against 4 calls of make_train_step from the
+              same init (bit-equal, launches exactly 4x a step's); one
+              step with remat against one without (loss, gradients,
+              parameters and BatchNorm statistics bit-equal; peak memory
+              and launches both ways) and with flat_layout "batch" against
+              "time"; then two gloo ranks sharing cuda:0: the multi-step
+              at K=2 against two data-parallel steps (bit-equal), the
+              benchmark model's bottleneck ConvLSTM (512 -> 512 at 4x4,
+              B=64) pipelined over time at T=10 and 9 and microbatches 1,
+              2 and 4 against convlstm in one process in f32 and bf16 (K1
+              launches per rank exact), stage B (phase 7's patches and
+              CSV, deterministic and MC at spp 16) and stage C (phase 14's
+              patches, both modes) over the ranks, byte-equal to one
+              process; the CLI's --data-parallel in one process equal to
+              --batch, and under torchrun with two CPU ranks equal to one
+              process; whether gloo's own send takes CUDA tensors
+              (recorded: the port stages them through the host). No
+              parallel speed; multi-rank NCCL unverified.
 
 Phase 2 also holds the gate update forward (K1) where its vector route does
 not go (C = 12, a gates view 2 bytes off a 16-byte boundary), with f32
@@ -239,6 +258,8 @@ from unet_convlstm_tpu_torch.core.dtypes import (DEFAULT_POLICY, FP32_POLICY,
 from unet_convlstm_tpu_torch.datagen import mc_reference
 from unet_convlstm_tpu_torch.datagen.microphysics import process_cloud_vars
 from unet_convlstm_tpu_torch.datagen.overpass import synthesize_overpass_csv
+from unet_convlstm_tpu_torch.datagen.render_batch import render_dataset
+from unet_convlstm_tpu_torch.datagen.velocity_maps import build_velocity_maps
 from unet_convlstm_tpu_torch.datagen.renderer import (VolumeScene,
                                                       sun_transmittance)
 from unet_convlstm_tpu_torch.eval import (EvalReport, evaluate_model,
@@ -253,6 +274,8 @@ from unet_convlstm_tpu_torch.ops.kernels import (build, chained_gather,
                                                  doubleconv_fused,
                                                  launch_counts, mc_sampler,
                                                  reset_launches)
+from unet_convlstm_tpu_torch.ops.convlstm import convlstm
+from unet_convlstm_tpu_torch.ops.convlstm_sp import convlstm_time_pipelined
 from unet_convlstm_tpu_torch.ops.losses import compute_loss
 from unet_convlstm_tpu_torch.ops.normalize import (NormStats, compute_mask,
                                                    compute_norm_stats,
@@ -270,7 +293,9 @@ from unet_convlstm_tpu_torch.train.checkpoint import (restore_checkpoint,
 from unet_convlstm_tpu_torch.train.config import TrainConfig
 from unet_convlstm_tpu_torch.train.loop import PROFILE_STEPS, _trainable_mask
 from unet_convlstm_tpu_torch.train.optim import make_optimizer
-from unet_convlstm_tpu_torch.train.steps import make_train_step
+from unet_convlstm_tpu_torch.train.metrics import MetricSums
+from unet_convlstm_tpu_torch.train.steps import (make_multi_train_step,
+                                                 make_train_step)
 from unet_convlstm_tpu_torch.utils.torch_weights import (
     save_resnet18_encoder_pth)
 
@@ -2306,12 +2331,13 @@ def _pkls(root):
     return out
 
 
-def phase_renders(workdir: str):
-    """``gen-renders`` through the port's CLI on the two production
+def render_tree(workdir: str):
+    """Stage B's input at the production geometry: the two production
     patches and a 2-view overpass CSV. Folders take the CSV's times in
     turn (render_all.py:89-92): the patches sit in the 7th folder, which
     gets the 7th time, when the synthetic pass is near nadir (sat zenith
-    ~15 deg), so that both views see the clouds; folders 1-6 are empty."""
+    ~15 deg), so that both views see the clouds; folders 1-6 are empty.
+    Returns (patch root, CSV path)."""
     root = os.path.join(workdir, "patches")
     for k in range(1, 7):
         os.makedirs(os.path.join(root, f"{k:010d}"))
@@ -2320,11 +2346,26 @@ def phase_renders(workdir: str):
     for i, beta in enumerate(mc_patches().values()):
         with open(os.path.join(src, f"sample_{i:03d}.pkl"), "wb") as f:
             pickle.dump({"beta_ext": beta}, f)
-    csv = synthesize_overpass_csv(os.path.join(workdir, "overpass.csv"),
-                                  n_times=7, n_satellites=2)
+    return root, synthesize_overpass_csv(
+        os.path.join(workdir, "overpass.csv"), n_times=7, n_satellites=2)
+
+
+RENDER_MC_FLAGS = ["--mc-spp", str(MC_SPP), "--mc-majorant-cell", "16"]
+
+
+def _raw(root):
+    """{relative path: file bytes} of a pkl tree."""
+    return {k: raw for k, (raw, _) in _pkls(root).items()}
+
+
+def phase_renders(workdir: str):
+    """``gen-renders`` through the port's CLI on ``render_tree``'s input:
+    deterministic, MC, MC batched, MC again. Returns the batched MC run's
+    pkls ({path: bytes}), which phase 19's ranks must reproduce."""
+    root, csv = render_tree(workdir)
     base = ["gen-renders", "--input", root, "--csv", csv, "--res",
             str(MC_RES)]
-    mc = ["--mc-spp", str(MC_SPP), "--mc-majorant-cell", "16"]
+    mc = RENDER_MC_FLAGS
     runs = {"deterministic": [], "mc": mc, "mc_batch": mc + ["--batch", "2"],
             "mc_rerun": mc}
     out, walls, counts = {}, {}, {}
@@ -2368,6 +2409,7 @@ def phase_renders(workdir: str):
                     for k, v in out["mc"].items()}, "ok": ok})
     if not ok:
         raise AssertionError("gen-renders checks failed")
+    return _raw(os.path.join(workdir, "mc_batch"))
 
 
 # ---------------------------------------------------------------------------
@@ -4881,6 +4923,509 @@ def phase_tp(workdir: str, gen):
     return per_step, k2
 
 
+# ---------------------------------------------------------------------------
+# 19. the rest of the mesh surface on the one card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MULTI_K, MULTI_K_RANKS = 4, 2        # steps a call: one process; the ranks
+SP_MICROBATCHES = (1, 2, 4)
+SP_TS = (TT, TT - 1)                 # T = 9: padded to two chunks of 5
+SP_F32_TOL = 1e-5                    # rtol and atol, as the CPU tests
+SP_BF16_RATIO = 1.25
+# "time" against "batch": one bf16 step from the same state computes the
+# same function with BatchNorm's sums over the frames in another order,
+# the difference phase 17 bounds between two ranks and one process
+LAYOUT_TOL = DP_BF16_TOL
+MESH_TOL_WHY = (
+    "multi-step: K steps a call bit-equal to K calls of the single step "
+    "(losses, metric sums, parameters, BN statistics, AdamW moments), in "
+    "one process and on two gloo ranks; remat: the step's loss, gradients, "
+    "parameters and BN statistics bit-equal to the step without it (the "
+    "recomputed forward runs the same deterministic kernels); flat_layout "
+    "'batch' against 'time': phase 17's bf16 bounds (BN sums over the "
+    "frames in another order); pipelined ConvLSTM on two ranks against "
+    f"convlstm in one process: f32 (TF32 off) |a - b| <= {SP_F32_TOL:g} + "
+    f"{SP_F32_TOL:g} |b| (the one-process bottleneck hoists the input "
+    "projection: the same sums split in two), bf16 each output's RMS "
+    f"error against the f32 one-process output at most {SP_BF16_RATIO}x "
+    "the bf16 one-process output's (they round at other places), the "
+    "ranks the same bits; stages B and C on two ranks, and the CLI's "
+    "--data-parallel (one process on the card; torchrun with two CPU "
+    "ranks), byte-equal to one process's pkls")
+
+
+def _multi_vs_single(tr, mesh, k):
+    """``make_multi_train_step``'s k bf16 steps in one call against k calls
+    of ``make_train_step``, each from the seeded init on this process's
+    rows of the benchmark batch: bit-equality, the multi call's launches
+    and both wall times."""
+    rows = mesh.rows(TB) if mesh is not None else slice(None)
+    x, y = tr.x[rows].contiguous(), tr.y[rows].contiguous()
+    apply = tr.flags(DEFAULT_POLICY, True)
+    runs = {}
+    with deterministic(DEV):
+        for kind in ("multi", "single"):
+            opt = tr.fresh(mesh=mesh)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            if kind == "multi":
+                losses, sums = make_multi_train_step(
+                    apply, tr.norm, mesh=mesh)(tr.model, opt,
+                                               torch.stack([x] * k),
+                                               torch.stack([y] * k))
+                sums = torch.stack(list(sums))
+            else:
+                step = make_train_step(apply, tr.norm, mesh=mesh)
+                each = [step(tr.model, opt, x, y) for _ in range(k)]
+                losses = torch.stack([loss for loss, _ in each])
+                sums = torch.stack([torch.stack(list(s))
+                                    for _, s in each]).sum(dim=0)
+            torch.cuda.synchronize()
+            runs[kind] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                          "counts": path_counts(),
+                          "losses": losses.tolist(),
+                          "bits": {**_digests({"losses": losses,
+                                               "sums": sums}),
+                                   **_digests(tr.model.state_dict()),
+                                   **_moment_digests(opt)}}
+    m, s1 = runs["multi"], runs["single"]
+    return {"k": k, "bit_equal": m["bits"] == s1["bits"],
+            "counts": m["counts"], "single_counts": s1["counts"],
+            "losses": m["losses"], "multi_wall_ms": m["wall_ms"],
+            "single_wall_ms": s1["wall_ms"], "bits": m["bits"]}
+
+
+def _probe_step(tr, **apply_kw):
+    """One bf16 step of the benchmark from the seeded init with
+    ``apply_kw`` bound into the model's apply: its loss, gradients, state
+    after the step, launches and peak memory."""
+    with deterministic(DEV):
+        opt = tr.fresh()
+        step = make_train_step(functools.partial(
+            tr.flags(DEFAULT_POLICY, True), **apply_kw), tr.norm)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, sums = step(tr.model, opt, tr.x, tr.y)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        # on the host, so that the next probe's peak holds none of it
+        return {"loss": loss.detach().cpu(),
+                "sums": MetricSums(*(t.cpu() for t in sums)),
+                "grads": {n: p.grad.detach().cpu()
+                          for n, p in tr.model.named_parameters()
+                          if p.grad is not None},
+                "state": {k: v.detach().cpu()
+                          for k, v in tr.model.state_dict().items()},
+                "counts": path_counts(), "wall_ms": wall,
+                "peak_gib": peak / 2 ** 30,
+                "peak_over_start_gib": (peak - before) / 2 ** 30}
+
+
+def mesh_remat_layout(tr):
+    """One bf16 step with and without remat (bit-equal; peak memory and
+    launches both ways), and in each flat layout (within LAYOUT_TOL)."""
+    plain = _probe_step(tr)
+    remat = _probe_step(tr, remat=True)
+    batch = _probe_step(tr, flat_layout="batch")
+    expect = on_main_routes({"gate_update": K1_PER_STEP,
+                             "gate_update_bwd": K1_PER_STEP,
+                             "conv3x3_fused": K2_PER_STEP, **NO_LAUNCHES})
+    # the recomputed encoder and decoder run every fused conv once more
+    remat_expect = on_main_routes(dict(expect,
+                                       conv3x3_fused=2 * K2_PER_STEP))
+    remat_equal = {
+        "loss": torch.equal(plain["loss"], remat["loss"]),
+        "grads": plain["grads"].keys() == remat["grads"].keys() and all(
+            torch.equal(g, remat["grads"][n])
+            for n, g in plain["grads"].items()),
+        "params_and_bn": all(torch.equal(v, remat["state"][k])
+                             for k, v in plain["state"].items())}
+    flipped, rms = _params_diff(batch["state"], plain["state"], tr.model)
+    layout = {"loss": [batch["loss"].item(), plain["loss"].item()],
+              "loss_rel": abs(batch["loss"].item() / plain["loss"].item()
+                              - 1),
+              "sums_err": _sums_err(batch["sums"], plain["sums"]),
+              "params_flipped": flipped, "params_rms_lr": rms,
+              "bn_err": _bn_err(batch["state"], plain["state"])}
+    line = {"phase": "mesh", "check": "remat_and_flat_layout", "B": TB,
+            "T": TT, "H": THW, "base_ch": TBASE, "dtype": "bfloat16",
+            "remat_bit_equal": remat_equal,
+            "peak_gib": {"plain": plain["peak_gib"],
+                         "remat": remat["peak_gib"],
+                         "batch_layout": batch["peak_gib"]},
+            "peak_over_start_gib": {"plain": plain["peak_over_start_gib"],
+                                    "remat": remat["peak_over_start_gib"]},
+            "step_ms": {"plain": plain["wall_ms"], "remat": remat["wall_ms"],
+                        "batch_layout": batch["wall_ms"]},
+            "launches": {"plain": plain["counts"], "remat": remat["counts"],
+                         "batch_layout": batch["counts"]},
+            "expected": {"plain": expect, "remat": remat_expect},
+            "batch_vs_time": layout, "layout_tol": LAYOUT_TOL}
+    line["counts_ok"] = (plain["counts"] == expect
+                         and batch["counts"] == expect
+                         and remat["counts"] == remat_expect)
+    line["ok"] = (all(remat_equal.values()) and line["counts_ok"]
+                  and _within([layout], LAYOUT_TOL, n=1))
+    emit(line)
+    return line
+
+
+def _sp_inputs():
+    """The benchmark model's bottleneck ConvLSTM (``temporal``: 512 -> 512
+    at 4x4) from the seeded init, and a seeded input [T, B, 4, 4, 512]."""
+    _, init, _, _ = build_model(benchmark.MODEL_CFG)
+    lstm = init(torch.Generator().manual_seed(SEED), device=DEV).temporal
+    g = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    side, c = THW // 16, 16 * TBASE
+    return lstm, torch.randn((TT, TB, side, side, c), generator=g,
+                             device=DEV)
+
+
+def _sp_expected_k1(mesh, T, M):
+    """K1 launches of one pipelined call on this rank: one a real frame
+    of its chunk a microbatch."""
+    chunk = -(-T // mesh.data)
+    return M * max(0, min(chunk, T - mesh.data_rank * chunk))
+
+
+def _sp_rank(mesh):
+    """The pipelined bottleneck layer at every (policy, T, M) on this rank:
+    K1 launches against the expectation, digests of the outputs, and on
+    rank 0 the errors against ``convlstm`` in one process."""
+    lstm, x = _sp_inputs()
+    out = {}
+    refs = {}
+    for tag, policy in (("f32", FP32_POLICY), ("bf16", DEFAULT_POLICY)):
+        for T in SP_TS:
+            with (full_fp32() if tag == "f32" else contextlib.nullcontext()):
+                if mesh.rank == 0 and (tag, T) not in refs:
+                    with torch.no_grad():
+                        y, [(h, c)] = convlstm(lstm, x[:T], policy=policy,
+                                               use_pallas=True)
+                    refs[tag, T] = (y, h, c)
+                for M in SP_MICROBATCHES:
+                    torch.cuda.synchronize()
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    y, (h, c) = convlstm_time_pipelined(
+                        lstm.layers[0], x[:T], mesh, microbatches=M,
+                        policy=policy)
+                    torch.cuda.synchronize()
+                    case = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                            "k1": convlstm_fused.launches,
+                            "k1_vector": convlstm_fused.launches_by_route[
+                                "vector"],
+                            "k1_expected": _sp_expected_k1(mesh, T, M),
+                            "shapes": [list(t.shape) for t in (y, h, c)],
+                            "digests": _digests({"y": y, "h": h, "c": c})}
+                    if mesh.rank == 0:
+                        case["got"] = (y, h, c)
+                    out[tag, T, M] = case
+    if mesh.rank != 0:
+        return out
+    for (tag, T, M), case in out.items():
+        got, ref = case.pop("got"), refs[tag, T]
+        if tag == "f32":
+            case["max_excess"] = max(
+                float(((a.float() - b.float()).abs()
+                       - SP_F32_TOL * (1 + b.float().abs())).max())
+                for a, b in zip(got, ref))
+            case["rel_err"] = [rel_err(a, b) for a, b in zip(got, ref)]
+        else:
+            f32 = refs["f32", T]
+            case["rms_vs_f32"] = [rms_rel_err(a, b) for a, b in zip(got, f32)]
+            case["one_process_rms_vs_f32"] = [
+                rms_rel_err(a, b) for a, b in zip(ref, f32)]
+            case["rms_vs_one_process"] = [rms_rel_err(a, b)
+                                          for a, b in zip(got, ref)]
+    return out
+
+
+def _mesh_rank(mesh, workdir, roots):
+    """One gloo rank on the card: the multi-step at K = MULTI_K_RANKS
+    against as many data-parallel steps, the pipelined ConvLSTM, and
+    stages B and C over the ranks into ``workdir``."""
+    torch.cuda.set_device(0)
+    tr = _Train()
+    multi = _multi_vs_single(tr, mesh, MULTI_K_RANKS)
+    del tr
+    torch.cuda.empty_cache()
+    sp = _sp_rank(mesh)
+    torch.cuda.empty_cache()
+    (b_root, b_csv), (c_root, c_csv) = roots
+    t0 = time.perf_counter()
+    stage_b = {tag: render_dataset(
+        b_root, os.path.join(workdir, f"b_{tag}"), b_csv,
+        resolution=(MC_RES, MC_RES), batch_size=2, mesh=mesh, device=DEV,
+        verbose=False, **kw) for tag, kw in (
+            ("det", {}), ("mc", dict(mc_spp=MC_SPP, mc_majorant_cell=16)))}
+    stage_b_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stage_c = {mode: build_velocity_maps(
+        c_root, os.path.join(workdir, f"c_{mode}"), c_csv, mode=mode,
+        resolution=(256, 256), slice_height_m=C_SLICE_M,
+        batch_size=C_BATCH, mesh=mesh, device=DEV, verbose=False)
+        for mode in ("slice", "first_hit")}
+    return {"multi": multi, "sp": sp, "stage_b": stage_b,
+            "stage_b_s": stage_b_s, "stage_c": stage_c,
+            "stage_c_s": time.perf_counter() - t0}
+
+
+def _gloo_p2p_rank(mesh):
+    """gloo's own send and receive of a CUDA tensor (the port stages it
+    through the host instead): does the received tensor hold the sender's
+    values?"""
+    torch.cuda.set_device(0)
+    src = torch.full((1024,), float(mesh.rank + 1), device=DEV)
+    buf = torch.zeros_like(src)
+    peer = 1 - mesh.rank
+    works = dist.batch_isend_irecv([dist.P2POp(dist.isend, src, peer),
+                                    dist.P2POp(dist.irecv, buf, peer)])
+    for w in works:
+        w.wait()
+    torch.cuda.synchronize()
+    return bool((buf == peer + 1).all())
+
+
+def _gloo_p2p_cuda():
+    """Run ``_gloo_p2p_rank`` on two ranks: "ok", or what went wrong
+    (recorded: the port does not depend on it)."""
+    try:
+        got = run_local_ranks(_gloo_p2p_rank, MESH_RANKS, backend="gloo",
+                              timeout_s=90, group_timeout_s=30)
+        return "ok" if all(got) else "received wrong values"
+    except Exception as e:   # recorded; the port's ring stages via the host
+        return f"{type(e).__name__}: {str(e).strip().splitlines()[-1][:200]}"
+
+
+def _torchrun_cli(workdir):
+    """``gen-renders`` and ``gen-maps --data-parallel`` under torchrun with
+    two CPU ranks on a small geometry, against one process's --batch 2:
+    {command: byte-equal}."""
+    root = os.path.join(workdir, "t_patches")
+    os.makedirs(os.path.join(root, f"{1:010d}"))
+    beta = np.zeros((10, 16, 16), np.float32)
+    beta[4:8, 4:12, 4:12] = 0.05
+    for i in range(3):
+        with open(os.path.join(root, f"{1:010d}", f"sample_00{i}.pkl"),
+                  "wb") as f:
+            b = np.roll(beta, i, axis=1)
+            pickle.dump({"beta_ext": b, "U": b, "V": -b, "W": b + 1.0}, f)
+    csv = synthesize_overpass_csv(os.path.join(workdir, "t.csv"),
+                                  n_times=1, n_satellites=2)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = {}
+    for cmd, extra in (("gen-renders", ["--fov", "0.01"]),
+                       ("gen-maps", ["--slice-height", "80"])):
+        args = [cmd, "--input", root, "--csv", csv, "--res", "12",
+                "--device", "cpu", *extra]
+        one = os.path.join(workdir, f"t_{cmd}_one")
+        with contextlib.redirect_stdout(sys.stderr):
+            cli_main(args + ["--output", one, "--batch", "2"])
+        dp = os.path.join(workdir, f"t_{cmd}_dp")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(MESH_RANKS), "-m",
+             "unet_convlstm_tpu_torch", *args, "--output", dp,
+             "--data-parallel"], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=180)
+        out[cmd] = {"rc": r.returncode,
+                    "wall_s": time.perf_counter() - t0,
+                    "stdout": r.stdout.strip().splitlines()[-1:],
+                    "stderr_tail": r.stderr.strip().splitlines()[-3:],
+                    "byte_equal": r.returncode == 0
+                    and _raw(dp) == _raw(one)}
+    return out
+
+
+def phase_mesh(workdir: str, mc_batch_pkls: dict):
+    """The rest of the mesh surface: K steps a call, remat and the flat
+    layouts in one process; then two gloo ranks sharing cuda:0 run the
+    multi-step, the pipelined ConvLSTM and stages B and C over the ranks;
+    the CLI's --data-parallel. ``mc_batch_pkls``: phase 7's batched MC
+    pkls. Returns the launches of the one-process runs."""
+    t_phase = time.perf_counter()
+    tr = _Train()
+    multi = _multi_vs_single(tr, None, MULTI_K)
+    expect = on_main_routes({"gate_update": K1_PER_STEP * MULTI_K,
+                             "gate_update_bwd": K1_PER_STEP * MULTI_K,
+                             "conv3x3_fused": K2_PER_STEP * MULTI_K,
+                             **NO_LAUNCHES})
+    multi.pop("bits")
+    line = {"phase": "mesh", "check": "multi_step", "B": TB, "T": TT,
+            "H": THW, "base_ch": TBASE, "dtype": "bfloat16", **multi,
+            "expected": expect, "counts_ok": multi["counts"] == expect
+            and multi["single_counts"] == expect}
+    line["ok"] = line["bit_equal"] and line["counts_ok"]
+    emit(line)
+    lines = [line]
+    lines.append(mesh_remat_layout(tr))
+    del tr
+    torch.cuda.empty_cache()
+
+    # the inputs of stages B and C, and one process's pkls of each
+    b_root, b_csv = render_tree(os.path.join(workdir, "b"))
+    c_root = os.path.join(workdir, "c_patches")
+    cloud_gate.synthesize_cloud_patches(
+        c_root, dataclasses.replace(GATE, n_folders=1))
+    c_csv = synthesize_overpass_csv(os.path.join(workdir, "c_overpass.csv"),
+                                    n_times=1, n_satellites=2)
+    one = {}
+    for tag, extra in (("det", []), ("det_dp", ["--data-parallel"])):
+        dst = os.path.join(workdir, f"one_b_{tag}")
+        with contextlib.redirect_stdout(sys.stderr):
+            cli_main(["gen-renders", "--input", b_root, "--csv", b_csv,
+                      "--res", str(MC_RES), "--batch", "2", "--output", dst,
+                      *extra])
+        one[tag] = _raw(dst)
+    c_base = ["--input", c_root, "--csv", c_csv, "--res", "256",
+              "--slice-height", str(C_SLICE_M), "--batch", str(C_BATCH)]
+    for mode in ("slice", "first_hit"):
+        for tag, extra in (("", []), ("_dp", ["--data-parallel"])):
+            dst = os.path.join(workdir, f"one_c_{mode}{tag}")
+            _gen_maps(c_base + ["--mode", mode] + extra, dst)
+            one[f"c_{mode}{tag}"] = _raw(dst)
+
+    ranks_dir = os.path.join(workdir, "ranks")
+    os.makedirs(ranks_dir)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_local_ranks(_mesh_rank, MESH_RANKS,
+                            (ranks_dir, ((b_root, b_csv), (c_root, c_csv))),
+                            backend="gloo", timeout_s=600,
+                            group_timeout_s=300)
+    ranks_wall = time.perf_counter() - t0
+
+    # (a) on the ranks
+    r0 = ranks[0]["multi"]
+    rank_expect = on_main_routes({
+        "gate_update": K1_PER_STEP * MULTI_K_RANKS,
+        "gate_update_bwd": K1_PER_STEP * MULTI_K_RANKS,
+        "conv3x3_fused": K2_PER_STEP * MULTI_K_RANKS, **NO_LAUNCHES})
+    line = {"phase": "mesh", "check": "multi_step_ranks",
+            "ranks": MESH_RANKS, "backend": "gloo",
+            "device": "cuda:0 shared", "rows_per_rank": TB // MESH_RANKS,
+            "k": MULTI_K_RANKS,
+            "bit_equal_single_steps": [r["multi"]["bit_equal"]
+                                       for r in ranks],
+            "ranks_same_bits": all(r["multi"]["bits"] == r0["bits"]
+                                   for r in ranks),
+            "losses": r0["losses"],
+            "launches_per_rank": [r["multi"]["counts"] for r in ranks],
+            "expected": rank_expect,
+            "multi_wall_ms": [r["multi"]["multi_wall_ms"] for r in ranks],
+            "single_wall_ms": [r["multi"]["single_wall_ms"] for r in ranks],
+            "note": "processes sharing one card: no data-parallel speed"}
+    line["ok"] = (all(line["bit_equal_single_steps"])
+                  and line["ranks_same_bits"]
+                  and all(c == rank_expect
+                          for c in line["launches_per_rank"]))
+    emit(line)
+    lines.append(line)
+
+    # (c) the pipelined ConvLSTM
+    sp0 = ranks[0]["sp"]
+    sp_cases = []
+    sp_ok = True
+    for key, case in sp0.items():
+        tag, T, M = key
+        c = dict(case, dtype=tag, T=T, microbatches=M,
+                 k1_per_rank=[r["sp"][key]["k1"] for r in ranks],
+                 k1_expected=[r["sp"][key]["k1_expected"] for r in ranks],
+                 ranks_same_bits=all(r["sp"][key]["digests"]
+                                     == case["digests"] for r in ranks))
+        c.pop("digests")
+        if tag == "f32":
+            c["ok"] = c["max_excess"] <= 0
+        else:
+            c["ok"] = all(a <= SP_BF16_RATIO * b for a, b in zip(
+                c["rms_vs_f32"], c["one_process_rms_vs_f32"]))
+        c["ok"] = (c["ok"] and c["ranks_same_bits"]
+                   and c["k1_per_rank"] == c["k1_expected"]
+                   and c["shapes"] == [[T, TB, THW // 16, THW // 16,
+                                        16 * TBASE]] + [
+                       [TB, THW // 16, THW // 16, 16 * TBASE]] * 2)
+        sp_ok = sp_ok and c["ok"]
+        sp_cases.append(c)
+    line = {"phase": "mesh", "check": "pipelined_convlstm",
+            "ranks": MESH_RANKS, "axis": "data", "layer": "temporal",
+            "channels": [16 * TBASE, 16 * TBASE], "side": THW // 16,
+            "B": TB, "cases": sp_cases, "ok": sp_ok}
+    emit(line)
+    lines.append(line)
+
+    # (d), (e) stages B and C over the ranks against one process
+    got_b = {tag: _raw(os.path.join(ranks_dir, f"b_{tag}"))
+             for tag in ("det", "mc")}
+    got_c = {mode: _raw(os.path.join(ranks_dir, f"c_{mode}"))
+             for mode in ("slice", "first_hit")}
+    line = {"phase": "mesh", "check": "datagen_ranks", "ranks": MESH_RANKS,
+            "stage_b": {"patch": [MC_NZ, MC_NXY, MC_NXY], "res": MC_RES,
+                        "spp": MC_SPP, "pkls": {t: len(v) for t, v in
+                                                got_b.items()},
+                        "det_byte_equal": got_b["det"] == one["det"],
+                        "mc_byte_equal_phase7": got_b["mc"] == mc_batch_pkls,
+                        "counts": [r["stage_b"] for r in ranks],
+                        "wall_s": [r["stage_b_s"] for r in ranks]},
+            "stage_c": {"patch": [GATE.nz, GATE.nxy, GATE.nxy], "res": 256,
+                        "batch": C_BATCH,
+                        "byte_equal": {m: got_c[m] == one[f"c_{m}"]
+                                       for m in got_c},
+                        "pkls": {m: len(v) for m, v in got_c.items()},
+                        "counts": [r["stage_c"] for r in ranks],
+                        "wall_s": [r["stage_c_s"] for r in ranks]}}
+    line["ok"] = (line["stage_b"]["det_byte_equal"]
+                  and line["stage_b"]["mc_byte_equal_phase7"]
+                  and len(got_b["det"]) == 4
+                  and all(r["stage_b"] == {"det": 4, "mc": 4}
+                          for r in ranks)
+                  and all(line["stage_c"]["byte_equal"].values())
+                  and all(r["stage_c"] == {m: 2 * GATE.n_samples
+                                           for m in got_c} for r in ranks))
+    emit(line)
+    lines.append(line)
+
+    # (f) the CLI: --data-parallel in one process, and under torchrun
+    torchrun = _torchrun_cli(workdir)
+    line = {"phase": "mesh", "check": "cli_data_parallel",
+            "one_process_equals_batch": {
+                "gen-renders": one["det_dp"] == one["det"],
+                **{f"gen-maps {m}": one[f"c_{m}_dp"] == one[f"c_{m}"]
+                   for m in ("slice", "first_hit")}},
+            "torchrun_cpu_ranks": torchrun}
+    line["ok"] = (all(line["one_process_equals_batch"].values())
+                  and all(v["byte_equal"] for v in torchrun.values()))
+    emit(line)
+    lines.append(line)
+
+    summary = {"phase": "mesh_summary",
+               "checks": [ln["check"] for ln in lines],
+               "ok": [ln["ok"] for ln in lines],
+               "gloo_p2p_cuda": _gloo_p2p_cuda(),
+               "ranks_wall_s": ranks_wall,
+               "phase_wall_s": time.perf_counter() - t_phase,
+               "note": "processes sharing one card: no parallel speed; "
+                       "multi-rank NCCL unverified (one card)"}
+    emit(summary)
+    if not all(summary["ok"]):
+        raise AssertionError("the mesh surface on the card failed")
+    rl = lines[1]["launches"]
+    return {name: {"multi_step_k4": multi["counts"][name],
+                   "remat_step": rl["remat"][name],
+                   "pipelined_convlstm_rank0": sum(
+                       c["k1_per_rank"][0] for c in sp_cases)
+                   if name == "gate_update" else 0}
+            for name in ("gate_update", "gate_update_bwd", "conv3x3_fused")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4937,7 +5482,7 @@ def main() -> int:
           "repro": ("K2's y, sum and sumsq over 20 launches, the training "
                     "steps run twice, the production gate run twice: "
                     "bit-equal"),
-          "dp": DP_TOL_WHY, "tp": TP_TOL_WHY})
+          "dp": DP_TOL_WHY, "tp": TP_TOL_WHY, "mesh": MESH_TOL_WHY})
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     k1 = check_k1(gen, K1_LEVELS, B, "request")
     k1_edges = check_k1_edges(gen)
@@ -4962,7 +5507,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k4_launches, k4_iters, _ = phase_mc()
     with tempfile.TemporaryDirectory() as workdir:
-        phase_renders(workdir)
+        mc_batch_pkls = phase_renders(workdir)
     probe_counts = phase_probes()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
@@ -4987,6 +5532,8 @@ def main() -> int:
         dp_counts = phase_dp(workdir)
         torch.cuda.empty_cache()
         tp_counts, k2_tp = phase_tp(workdir, gen)
+        torch.cuda.empty_cache()
+        mesh_counts = phase_mesh(workdir, mc_batch_pkls)
 
     per = f"one request: B={B}, T={T}, {HW}x{HW}, base_ch {BASE}, bf16"
     per_step = (f"one training step: B={TB}, T={TT}, {THW}x{THW}, base_ch "
@@ -5077,6 +5624,7 @@ def main() -> int:
         k["datachain_launches"] = chain_counts[k["name"]]
         k["dp_launches_per_rank_per_step"] = dp_counts[k["name"]]
         k["tp_launches_per_rank_per_step"] = tp_counts[k["name"]]
+        k["mesh_launches"] = mesh_counts[k["name"]]
     kernels[3]["datachain_launches"] = chain_counts["mc_sample_flights"]
     kernels[0]["resnet"] = resnet["gate_update"]
     kernels[2]["resnet"] = resnet["gate_update_bwd"]

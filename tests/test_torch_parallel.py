@@ -86,7 +86,9 @@ from unet_convlstm_tpu_torch.train import loop as tloop
 from unet_convlstm_tpu_torch.train.config import TrainConfig
 from unet_convlstm_tpu_torch.train.loop import fit
 from unet_convlstm_tpu_torch.train.optim import make_optimizer
-from unet_convlstm_tpu_torch.train.steps import make_train_step
+from unet_convlstm_tpu_torch.train.metrics import MetricSums
+from unet_convlstm_tpu_torch.train.steps import (make_multi_train_step,
+                                                 make_train_step)
 
 CFG = {"type": "custom", "base_ch": 4, "use_skip_lstm": True,
        "lstm_layers": 1}
@@ -302,6 +304,58 @@ def _rank_fit(mesh, npz, dirs):
                      group=mesh.group)
         out[zero1] = res["history"]
     return out
+
+
+MULTI_K, MULTI_B, MULTI_HW = 2, 8, 16
+
+
+def multi_batches(seed=5):
+    """MULTI_K seeded batches [K, B, T, H, W, C] and their norm stats."""
+    xs, ys = zip(*[_batch(seed + k, MULTI_B, MULTI_HW)
+                   for k in range(MULTI_K)])
+    xs, ys = np.stack(xs), np.stack(ys)
+    return xs, ys, compute_norm_stats(xs.reshape(-1, *xs.shape[2:]),
+                                      ys.reshape(-1, *ys.shape[2:]))
+
+
+def multi_and_single_steps(mesh, state, accum):
+    """From ``state``, momentum SGD: ``make_multi_train_step``'s MULTI_K
+    steps in one call, then MULTI_K calls of ``make_train_step``, each on
+    this process's rows of the seeded batches (``mesh`` None: all rows).
+    Returns both runs' losses, summed metric sums, model state and
+    momentum buffers."""
+    xs, ys, stats = multi_batches()
+    if mesh is not None:
+        rows = mesh.rows(MULTI_B)
+        xs, ys = (np.ascontiguousarray(a[:, rows]) for a in (xs, ys))
+    xs, ys = torch.from_numpy(xs), torch.from_numpy(ys)
+    out = {}
+    for kind in ("multi", "single"):
+        model, apply = _port_model(CFG, state)
+        opt = _sgd(model, mesh)
+        if kind == "multi":
+            losses, sums = make_multi_train_step(
+                apply, stats, mesh=mesh, accum_steps=accum)(model, opt, xs,
+                                                            ys)
+        else:
+            step = make_train_step(apply, stats, mesh=mesh,
+                                   accum_steps=accum)
+            each = [step(model, opt, xs[k], ys[k]) for k in range(MULTI_K)]
+            losses = torch.stack([loss for loss, _ in each])
+            sums = MetricSums(*torch.stack(
+                [torch.stack(list(s)) for _, s in each]).sum(dim=0).unbind())
+        out[kind] = {"losses": to_host(losses),
+                     "sums": to_host(torch.stack(list(sums))),
+                     "state": to_host(model.state_dict()),
+                     "momentum": to_host([opt.adamw.state[p][
+                         "momentum_buffer"] for p in opt.trainable])}
+    return out
+
+
+def _rank_multi(mesh, state):
+    torch.set_num_threads(1)
+    return {accum: multi_and_single_steps(mesh, state, accum)
+            for accum in (1, 2)}
 
 
 def _rank_dies(mesh):

@@ -106,12 +106,20 @@ def test_knob_conflicts_and_unported_options(tmp_path):
                 dict(ms_orders=2, ms_calibrate_spp=8, batch_size=2)):
         with pytest.raises(ValueError):
             render_dataset(inp, out, csv, **KW, **bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh runs (tests/test_torch_render_shard.py); one that is no
+    # parallel.Mesh is refused
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         render_dataset(inp, out, csv, **KW, batch_size=2, mesh=object(),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["gen-renders", "--input", inp, "--output", out, "--csv", csv,
-              "--data-parallel", "--device", "cpu"])
+    # --data-parallel without torchrun is one process: --batch alone
+    flags = ["gen-renders", "--input", inp, "--csv", csv, "--res", "12",
+             "--fov", "0.01", "--device", "cpu"]
+    main(flags + ["--output", out, "--data-parallel"])
+    main(flags + ["--output", str(tmp_path / "plain")])
+    name = "sample_000_time_0_view_0.pkl"
+    with open(os.path.join(out, "0000000001", name), "rb") as f, \
+            open(tmp_path / "plain" / "0000000001" / name, "rb") as g:
+        assert f.read() == g.read()
 
 
 def test_cli_writes_the_pkls(tmp_path, capsys):

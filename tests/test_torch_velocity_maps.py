@@ -122,12 +122,18 @@ def test_bounds_and_error_isolation(chain, tmp_path):
 
 def test_unported_and_invalid_options(chain, tmp_path):
     patches, csv = chain
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # a mesh runs (tests/test_torch_render_shard.py); one that is no
+    # parallel.Mesh is refused
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         build_velocity_maps(patches, str(tmp_path), csv, mesh=object(),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main(["gen-maps", "--input", patches, "--output", str(tmp_path),
-              "--csv", csv, "--data-parallel", "--device", "cpu"])
+    # --data-parallel without torchrun is one process: --batch alone
+    flags = ["gen-maps", "--input", patches, "--csv", csv, "--res", "12",
+             "--slice-height", "80", "--batch", "3", "--device", "cpu"]
+    main(flags + ["--output", str(tmp_path / "dp"), "--data-parallel"])
+    main(flags + ["--output", str(tmp_path / "plain")])
+    assert _differing(_tree(str(tmp_path / "dp")),
+                      _tree(str(tmp_path / "plain"))) == 0
     with pytest.raises(ValueError, match="unknown mode"):
         build_velocity_maps(patches, str(tmp_path / "b"), csv, mode="nope",
                             batch_size=2, device="cpu")

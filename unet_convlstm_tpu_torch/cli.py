@@ -30,6 +30,8 @@ the data chain's ``gen-patches``, ``gen-renders``, ``gen-maps`` and
         --output renders --csv overpass.csv [--mc-spp 16]
     python -m unet_convlstm_tpu_torch gen-maps --input patches --output maps \\
         --csv overpass.csv [--mode first_hit] [--batch 8]
+    torchrun --nproc-per-node 2 -m unet_convlstm_tpu_torch gen-renders \\
+        --input patches --output renders --csv overpass.csv --data-parallel
     python -m unet_convlstm_tpu_torch gen-sequences --images renders \\
         --maps maps --out cloud.npz
     python -m unet_convlstm_tpu_torch cloud-gate --work-dir gate --production
@@ -44,10 +46,12 @@ the data chain's ``gen-patches``, ``gen-renders``, ``gen-maps`` and
     python -m unet_convlstm_tpu_torch doctor [--device cpu]
 
 Parallel ``train`` (a config's ``mesh_data`` and ``mesh_model``: data
-parallel, tensor parallel or both, with ``zero1``) and ``evaluate
---mesh-data N`` run one process a rank under torchrun, which gives each its
-rank; the process group is NCCL on the cards (LOCAL_RANK picks the card)
-and gloo with ``--device cpu``. Only global rank 0 writes.
+parallel, tensor parallel or both, with ``zero1``), ``evaluate
+--mesh-data N`` and ``gen-renders``/``gen-maps --data-parallel`` (the
+patch axis over WORLD_SIZE ranks) run one process a rank under torchrun,
+which gives each its rank; the process group is NCCL on the cards
+(LOCAL_RANK picks the card) and gloo with ``--device cpu``. Only global
+rank 0 writes.
 
 Runs on the card unless ``--device cpu`` is given (``gen-patches``,
 ``stats``, ``inspect`` and ``convert-checkpoint`` are host work; the .nc
@@ -184,6 +188,10 @@ def _evaluate(args, mesh, device) -> None:
 
     model, apply_fn, _, meta, norm_stats = _load_checkpoint_for_eval(
         args.checkpoint, device)
+    if mesh is not None:
+        # batch-major flatten under the sharded batch, as the JAX CLI
+        # passes it (models/layout.py)
+        apply_fn = functools.partial(apply_fn, flat_layout="batch")
     if args.int8 and not meta.get("int8"):
         model = quantize_model(model)
     dataset = NPZSequenceDataset(args.npz, stats=norm_stats)
@@ -341,21 +349,35 @@ def cmd_gen_renders(args) -> None:
     """Stage B: LES patches → radiance pkls (datagen/render_batch.py)."""
     from .datagen.render_batch import render_dataset
 
-    if args.data_parallel:
-        raise NotImplementedError(
-            "gen-renders --data-parallel: multi-device rendering is not "
-            "ported yet (ROADMAP.md, queue A item 7c: the mesh surface)")
-    n = render_dataset(args.input, args.output, args.csv,
-                       resolution=(args.res, args.res), fov_deg=args.fov,
-                       g=args.g, start=args.start, end=args.end,
-                       ms_orders=args.ms_orders,
-                       ms_calibrate_spp=args.ms_calibrate_spp,
-                       mc_spp=args.mc_spp, mc_max_depth=args.mc_max_depth,
-                       mc_seed=args.mc_seed,
-                       mc_majorant_cell=args.mc_majorant_cell,
-                       mc_spp_chunk=args.mc_spp_chunk,
-                       batch_size=args.batch, device=args.device)
-    print(f"wrote {n} render pkls")
+    with _datagen_mesh(args) as (batch, mesh, device):
+        n = render_dataset(args.input, args.output, args.csv,
+                           resolution=(args.res, args.res), fov_deg=args.fov,
+                           g=args.g, start=args.start, end=args.end,
+                           ms_orders=args.ms_orders,
+                           ms_calibrate_spp=args.ms_calibrate_spp,
+                           mc_spp=args.mc_spp,
+                           mc_max_depth=args.mc_max_depth,
+                           mc_seed=args.mc_seed,
+                           mc_majorant_cell=args.mc_majorant_cell,
+                           mc_spp_chunk=args.mc_spp_chunk,
+                           batch_size=batch, mesh=mesh, device=device)
+        if mesh is None or mesh.rank == 0:
+            print(f"wrote {n} render pkls")
+
+
+@contextlib.contextmanager
+def _datagen_mesh(args):
+    """The datagen commands' --batch and --data-parallel as (batch_size,
+    mesh, device). --data-parallel under torchrun: the data-only mesh of
+    WORLD_SIZE ranks (parallel.init_group_from_env: NCCL on the cards,
+    LOCAL_RANK picking the card, gloo with --device cpu), destroyed on
+    exit, and --batch 1 becomes one patch a rank a chunk. Without
+    torchrun it is one process: --batch alone, as the JAX package's
+    one-device mesh."""
+    n = int(os.environ.get("WORLD_SIZE", "1")) if args.data_parallel else 1
+    with _data_parallel(n, args.device) as (mesh, device):
+        one_each = mesh is not None and args.batch == 1
+        yield (mesh.data if one_each else args.batch), mesh, device
 
 
 def cmd_gen_patches(args) -> None:
@@ -370,18 +392,18 @@ def cmd_gen_patches(args) -> None:
 
 def cmd_gen_maps(args) -> None:
     """Stage C: patches → velocity-map pkls (datagen/velocity_maps.py)."""
-    from .datagen.velocity_maps import MULTI_DEVICE, build_velocity_maps
+    from .datagen.velocity_maps import build_velocity_maps
 
-    if args.data_parallel:
-        raise NotImplementedError(f"gen-maps --data-parallel: {MULTI_DEVICE}")
-    n = build_velocity_maps(args.input, args.output, args.csv,
-                            mode=args.mode,
-                            resolution=(args.res, args.res),
-                            slice_height_m=args.slice_height,
-                            use_fixed_camera=not args.csv_cameras,
-                            start=args.start, end=args.end,
-                            batch_size=args.batch, device=args.device)
-    print(f"wrote {n} map pkls")
+    with _datagen_mesh(args) as (batch, mesh, device):
+        n = build_velocity_maps(args.input, args.output, args.csv,
+                                mode=args.mode,
+                                resolution=(args.res, args.res),
+                                slice_height_m=args.slice_height,
+                                use_fixed_camera=not args.csv_cameras,
+                                start=args.start, end=args.end,
+                                batch_size=batch, mesh=mesh, device=device)
+        if mesh is None or mesh.rank == 0:
+            print(f"wrote {n} map pkls")
 
 
 def cmd_gen_sequences(args) -> None:
@@ -863,8 +885,9 @@ def build_parser() -> argparse.ArgumentParser:
     gr.add_argument("--batch", type=int, default=1,
                     help="patches per dispatch (one batched program)")
     gr.add_argument("--data-parallel", action="store_true",
-                    help="shard the patch batch over all devices (not "
-                         "ported yet: raises)")
+                    help="shard each chunk's patches over the ranks of a "
+                         "torchrun launch (--batch 1 becomes one patch a "
+                         "rank); without torchrun: one process")
     gr.add_argument("--ms-orders", type=int, default=1,
                     help="successive-order multiple scattering for the "
                          "deterministic renderer (1 = single scatter)")
@@ -914,8 +937,9 @@ def build_parser() -> argparse.ArgumentParser:
     gm.add_argument("--batch", type=int, default=1,
                     help="patches per call (one march for the chunk)")
     gm.add_argument("--data-parallel", action="store_true",
-                    help="shard the patch batch over all devices (not "
-                         "ported yet: raises)")
+                    help="shard each chunk's patches over the ranks of a "
+                         "torchrun launch (--batch 1 becomes one patch a "
+                         "rank); without torchrun: one process")
     _device_arg(gm)
     gm.set_defaults(fn=cmd_gen_maps)
 

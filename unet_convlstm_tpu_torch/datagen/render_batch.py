@@ -11,7 +11,10 @@ with rendering via a 1-worker prefetch thread (:146-172).
 The sun-transmittance volume is computed once per patch and shared by all
 satellite views of that timestamp; renders run on one device (the card
 unless ``device`` names another), in PyTorch (datagen/renderer.py) instead
-of Mitsuba CUDA megakernels.
+of Mitsuba CUDA megakernels. With a mesh (``parallel.Mesh``, one process
+a rank under torchrun) every rank reads each chunk, renders its block of
+the chunk's patches (render_shard.py), and global rank 0 alone writes the
+pkls.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core.dtypes import resolve_device
+from ..parallel.mesh import data_mesh
 from .overpass import (camera_schedule, enumerate_patch_folders,
                        read_overpass_csv, sun_direction)
 from .renderer import (SUN_IRRADIANCE, VolumeScene,
@@ -79,13 +83,18 @@ def render_dataset(input_root: str, output_root: str, csv_path: str,
     ``batch_size`` > 1 renders that many of a folder's patches per
     dispatch as one batched program (they share cameras + sun by the
     cyclic time assignment; render_shard.py). The reference's analog is a
-    serial per-patch GPU loop (render_all.py:146-199). ``mesh`` (sharding
-    the patch axis across devices) is not ported yet and raises.
+    serial per-patch GPU loop (render_all.py:146-199). ``mesh``
+    (``parallel.Mesh``): each chunk's patch axis split over the data
+    ranks, which all call this with the same arguments; global rank 0
+    writes the pkls and every rank returns their count. A mesh of more
+    than one rank needs ``batch_size`` > 1 (the CLI's ``--data-parallel``
+    makes ``--batch 1`` the data degree).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "render_dataset(mesh=...): multi-device rendering is not ported "
-            "yet (ROADMAP.md, queue A item 7c: the mesh surface)")
+    mesh = data_mesh(mesh)
+    if mesh is not None and mesh.data > 1 and batch_size < 2:
+        raise ValueError(
+            f"render_dataset on a mesh of {mesh.data} ranks renders "
+            f"chunks of patches: batch_size must be > 1, got {batch_size}")
     device = resolve_device(device)
     if mc_spp > 0 and ms_orders > 1:
         raise ValueError(
@@ -104,7 +113,7 @@ def render_dataset(input_root: str, output_root: str, csv_path: str,
             input_root, output_root, csv_path, resolution, fov_deg, g,
             voxel_size, z_offset, target_z_scale, start, end, ms_orders,
             mc_spp, mc_max_depth, mc_seed, mc_majorant_cell,
-            mc_spp_chunk, batch_size, verbose, device)
+            mc_spp_chunk, batch_size, mesh, verbose, device)
     log = print if verbose else (lambda *a, **k: None)
     times, schedule = camera_schedule(read_overpass_csv(csv_path))
     folders = enumerate_patch_folders(input_root, start, end)
@@ -225,17 +234,20 @@ def _render_dataset_batched(input_root, output_root, csv_path, resolution,
                             target_z_scale, start, end, ms_orders,
                             mc_spp, mc_max_depth, mc_seed,
                             mc_majorant_cell, mc_spp_chunk,
-                            batch_size, verbose, device) -> int:
-    """Chunked body of render_dataset (batch_size > 1). With ``mc_spp`` > 0
+                            batch_size, mesh, verbose, device) -> int:
+    """Chunked body of render_dataset (batch_size > 1), each chunk split
+    over the mesh's data ranks when there is one. With ``mc_spp`` > 0
     the chunk path-traces as one batched lockstep loop;
     seeds match the serial driver's per-(folder, patch, view) derivation,
     so serial and batched MC datasets are identical whenever the
     chunk-conservative lockstep bound doesn't bind (it's a safety net)."""
-    log = print if verbose else (lambda *a, **k: None)
+    writer = mesh is None or mesh.rank == 0
+    log = print if verbose and writer else (lambda *a, **k: None)
     times, schedule = camera_schedule(read_overpass_csv(csv_path))
     folders = enumerate_patch_folders(input_root, start, end)
+    ranks = f" over {mesh.data} ranks" if mesh is not None else ""
     log(f"[render] {len(folders)} folders × views; res={resolution}; "
-        f"batch={batch_size} on {device}")
+        f"batch={batch_size} on {device}{ranks}")
 
     counter = [0]
     pool = ThreadPoolExecutor(max_workers=1)
@@ -285,7 +297,7 @@ def _render_dataset_batched(input_root, output_root, csv_path, resolution,
                     output_root, resolution, fov_deg, g, voxel_size,
                     z_offset, target_z_scale, ms_orders, mc_spp,
                     mc_max_depth, mc_seed, mc_majorant_cell,
-                    mc_spp_chunk, device, log, counter)
+                    mc_spp_chunk, device, mesh, log, counter)
     finally:
         pool.shutdown(wait=False)
     log(f"[render] wrote {counter[0]} pkls")
@@ -296,9 +308,10 @@ def _render_chunk_group(good, folder_idx, folder, t, views, sun,
                         output_root, resolution, fov_deg, g, voxel_size,
                         z_offset, target_z_scale, ms_orders, mc_spp,
                         mc_max_depth, mc_seed, mc_majorant_cell,
-                        mc_spp_chunk, device, log, counter) -> None:
+                        mc_spp_chunk, device, mesh, log, counter) -> None:
     """Render one same-shape group of a chunk and write its pkls
-    (counter[0] accumulates across groups/chunks)."""
+    (counter[0] accumulates across groups/chunks; with a mesh global rank
+    0 writes, and every rank counts)."""
     from .render_shard import render_views_batch
 
     beta_b = np.stack([b for _, _, b in good])
@@ -324,18 +337,21 @@ def _render_chunk_group(good, folder_idx, folder, t, views, sun,
             mc_spp=mc_spp, mc_max_depth=mc_max_depth,
             mc_seeds=mc_seeds,
             mc_majorant_cell=mc_majorant_cell,
-            mc_spp_chunk=mc_spp_chunk, device=device)
+            mc_spp_chunk=mc_spp_chunk, mesh=mesh, device=device)
     except Exception as e:
         log(f"[render] chunk failed in {folder}: {e}")
         return
+    writer = mesh is None or mesh.rank == 0
     out_dir = os.path.join(output_root, folder)
-    os.makedirs(out_dir, exist_ok=True)
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
     for bi, (_, name, _) in enumerate(good):
         base = os.path.splitext(name)[0]
         for sat in range(len(views)):
             out = f"{base}_time_{int(t)}_view_{sat}.pkl"
-            with open(os.path.join(out_dir, out), "wb") as f:
-                pickle.dump({"render": imgs[bi, sat],
-                             "timestamp": int(t),
-                             "satellite_idx": sat}, f)
+            if writer:
+                with open(os.path.join(out_dir, out), "wb") as f:
+                    pickle.dump({"render": imgs[bi, sat],
+                                 "timestamp": int(t),
+                                 "satellite_idx": sat}, f)
             counter[0] += 1

@@ -9,6 +9,13 @@ lockstep loop, each patch with its own per-round keys; a patch whose paths
 have all ended is unchanged by the iterations the others still need, so the
 batched result equals per-patch ``mc_radiance`` calls with the same seeds.
 Like the JAX package, the batched MC route uses the threefry sampler.
+
+With a mesh (``parallel.Mesh``, one process a rank), the patch axis is
+split over the data ranks: each rank renders its block of the chunk
+(``pad_and_shard``), and the images are all-gathered over the ranks, so
+every rank returns the whole chunk's, as the JAX package's sharded
+program does. There is no other collective: rendering is embarrassingly
+parallel.
 """
 
 from __future__ import annotations
@@ -19,11 +26,26 @@ import numpy as np
 import torch
 
 from ..core.dtypes import resolve_device
+from ..parallel.mesh import data_mesh
 from .mc_reference import (_mc_radiance_impl, chunked_mc_sum,
                            default_max_events, round_keys)
 from .renderer import (SUN_IRRADIANCE, VolumeScene, f32,
                        multiple_scatter_fluence, render_batch,
                        sun_transmittance_batch)
+
+
+def pad_and_shard(arrays, mesh):
+    """Zero-pad each tensor's leading (patch) axis to a multiple of the
+    mesh's data degree and keep this rank's block of it. Returns (blocks,
+    pad_b); with no mesh (or one process without a group) the tensors
+    themselves and pad_b = 0. Shared by the stage-B (here) and stage-C
+    (velocity_maps.py) batched paths."""
+    mesh = data_mesh(mesh)
+    if mesh is None:
+        return list(arrays), 0
+    pad_b = (-arrays[0].shape[0]) % mesh.data
+    return [mesh.block(torch.cat([a, a.new_zeros((pad_b,) + a.shape[1:])])
+                       if pad_b else a, 0) for a in arrays], pad_b
 
 
 def render_views_batch(beta_batch, views: Sequence[Tuple], sun_dir,
@@ -49,12 +71,13 @@ def render_views_batch(beta_batch, views: Sequence[Tuple], sun_dir,
     Monte-Carlo transport with ``mc_seeds`` [B, V] (required);
     ``mc_max_events`` defaults to the max of the per-patch serial bounds;
     ``mc_majorant_cell`` and ``mc_spp_chunk`` as in ``mc_radiance``.
-    ``device``: the card unless given. ``mesh`` (sharding the patch axis
-    over devices) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "render_views_batch(mesh=...): multi-device rendering is not "
-            "ported yet (ROADMAP.md, queue A item 7c: the mesh surface)")
+    ``device``: the card unless given. ``mesh`` (``parallel.Mesh``): the
+    patch axis split over its data ranks (B zero-padded to a multiple of
+    the degree; the padding dropped from the result), every rank passing
+    the whole chunk and returning every patch's images; the MC lockstep
+    bound is taken from the whole chunk before the split, so the images
+    equal one process's."""
+    mesh = data_mesh(mesh)
     if camera_method not in ("auto", "ortho", "march"):
         raise ValueError(f"unknown camera_method {camera_method!r}: "
                          "expected 'auto', 'ortho' or 'march'")
@@ -83,7 +106,7 @@ def render_views_batch(beta_batch, views: Sequence[Tuple], sun_dir,
                              "directly (no ortho composite exists)")
         if mc_seeds is None:
             raise ValueError("mc_seeds [B, V] is required with mc_spp")
-        mc_seeds = np.asarray(mc_seeds, np.int32)
+        mc_seeds = torch.from_numpy(np.asarray(mc_seeds, np.int32))
         if mc_seeds.shape != (B, len(views)):
             raise ValueError(f"mc_seeds must be [B={B}, V={len(views)}], "
                              f"got {mc_seeds.shape}")
@@ -91,6 +114,10 @@ def render_views_batch(beta_batch, views: Sequence[Tuple], sun_dir,
             bmax = float(beta_batch.max())
             mc_max_events = default_max_events(
                 bmax, geom.diagonal, float(voxel_size), mc_majorant_cell)
+        (beta_batch, mc_seeds), pad_b = pad_and_shard(
+            [beta_batch, mc_seeds], mesh)
+    else:
+        (beta_batch,), pad_b = pad_and_shard([beta_batch], mesh)
 
     # --- shared per-chunk volumes: t_sun (+ e_ms), batched --------------
     t_sun = sun_transmittance_batch(beta_batch, voxel_size, geom.min_bound,
@@ -126,4 +153,7 @@ def render_views_batch(beta_batch, views: Sequence[Tuple], sun_dir,
         out.append(render_batch(
             beta_batch, t_sun, e_ms, geom, origin, target, up, fov_deg, res,
             sun_t, g, albedo, irradiance, None, ocean_albedo, camera_method))
-    return torch.stack(out, dim=1).cpu().numpy()          # [B, V, H, W]
+    imgs = torch.stack(out, dim=1)                   # [B(/D), V, H, W]
+    if mesh is not None:
+        imgs = mesh.all_gather(imgs)[:B]
+    return imgs.cpu().numpy()

@@ -15,7 +15,10 @@ Capability parity with reference ``preprocessing/build_WVU_maps.py:51-178``:
 Each patch's volumes are uploaded to the device once and every view is
 ray-cast there (datagen/raycast.py); maps come back to the host only for
 the pkl write. ``batch_size`` > 1 casts a chunk of a folder's patches per
-call, one march for the whole chunk.
+call, one march for the whole chunk. With a mesh (``parallel.Mesh``, one
+process a rank under torchrun) each chunk's patch axis is split over the
+data ranks (``render_shard.pad_and_shard``, as stage B), the maps are
+all-gathered, and global rank 0 alone writes the pkls.
 """
 
 from __future__ import annotations
@@ -28,14 +31,13 @@ import numpy as np
 import torch
 
 from ..core.dtypes import resolve_device
+from ..parallel.mesh import data_mesh
 from .overpass import (camera_schedule, enumerate_patch_folders,
                        read_overpass_csv)
 from .raycast import (VolumeGrid, _first_hit_batch, _z_slice_batch,
                       first_hit_maps, z_slice_maps)
 
 FIXED_NADIR_CAMERA_M = np.array([0.0, 0.0, 600.0 * 1000.0])
-MULTI_DEVICE = ("build_velocity_maps(mesh=...): multi-device ray casting is "
-                "not ported yet (ROADMAP.md, queue A item 7c: the mesh surface)")
 
 
 def render_patch_maps(grid: VolumeGrid, cam_pos, look_at,
@@ -85,17 +87,23 @@ def build_velocity_maps(input_root: str, output_root: str, csv_path: str,
 
     ``batch_size`` > 1 ray-casts that many of a folder's patches per call
     (they share cameras by the cyclic time assignment), each chunk one
-    march over all its patches. ``mesh`` (sharding the patch axis across
-    devices) is not ported yet and raises. Reference analog: serial
-    per-patch loop (build_WVU_maps.py:96-177)."""
-    if mesh is not None:
-        raise NotImplementedError(MULTI_DEVICE)
+    march over all its patches. ``mesh`` (``parallel.Mesh``): each chunk's
+    patch axis split over the data ranks, which all call this with the
+    same arguments; global rank 0 writes and every rank returns the
+    count. A mesh of more than one rank needs ``batch_size`` > 1 (the
+    CLI's ``--data-parallel`` makes ``--batch 1`` the data degree).
+    Reference analog: serial per-patch loop (build_WVU_maps.py:96-177)."""
+    mesh = data_mesh(mesh)
+    if mesh is not None and mesh.data > 1 and batch_size < 2:
+        raise ValueError(
+            f"build_velocity_maps on a mesh of {mesh.data} ranks casts "
+            f"chunks of patches: batch_size must be > 1, got {batch_size}")
     dev = resolve_device(device)
     if batch_size > 1:
         return _build_velocity_maps_batched(
             input_root, output_root, csv_path, mode, resolution,
             slice_height_m, reference_plane_z, use_fixed_camera, fov,
-            start, end, batch_size, verbose, dev)
+            start, end, batch_size, mesh, verbose, dev)
     log = print if verbose else (lambda *a, **k: None)
     times, schedule = camera_schedule(read_overpass_csv(csv_path))
     folders = enumerate_patch_folders(input_root, start, end)
@@ -132,16 +140,21 @@ def build_velocity_maps(input_root: str, output_root: str, csv_path: str,
 def _build_velocity_maps_batched(input_root, output_root, csv_path, mode,
                                  resolution, slice_height_m,
                                  reference_plane_z, use_fixed_camera, fov,
-                                 start, end, batch_size, verbose,
+                                 start, end, batch_size, mesh, verbose,
                                  dev) -> int:
-    """Chunked body of build_velocity_maps (batch_size > 1)."""
+    """Chunked body of build_velocity_maps (batch_size > 1), each chunk
+    split over the mesh's data ranks when there is one."""
+    from .render_shard import pad_and_shard
+
     if mode not in ("slice", "first_hit"):
         raise ValueError(f"unknown mode {mode!r}")
-    log = print if verbose else (lambda *a, **k: None)
+    writer = mesh is None or mesh.rank == 0
+    log = print if verbose and writer else (lambda *a, **k: None)
     times, schedule = camera_schedule(read_overpass_csv(csv_path))
     folders = enumerate_patch_folders(input_root, start, end)
+    ranks = f" over {mesh.data} ranks" if mesh is not None else ""
     log(f"[velocity_maps] {len(folders)} folders, mode={mode}, "
-        f"batch={batch_size} on {dev}")
+        f"batch={batch_size} on {dev}{ranks}")
 
     res = tuple(resolution)
     suffix = ("first_hit" if mode == "first_hit"
@@ -152,7 +165,8 @@ def _build_velocity_maps_batched(input_root, output_root, csv_path, mode,
         cams = _view_cameras(schedule[t], use_fixed_camera)
         in_dir = os.path.join(input_root, folder)
         out_dir = os.path.join(output_root, folder)
-        os.makedirs(out_dir, exist_ok=True)
+        if writer:
+            os.makedirs(out_dir, exist_ok=True)
         pkls = sorted(f for f in os.listdir(in_dir) if f.endswith(".pkl"))
         for c in range(0, len(pkls), batch_size):
             good = []
@@ -169,9 +183,11 @@ def _build_velocity_maps_batched(input_root, output_root, csv_path, mode,
             if not good:
                 continue
             try:
-                beta_b, u_b, v_b, w_b = (
-                    torch.from_numpy(np.stack([g[1][k] for g in good])).to(dev)
-                    for k in range(4))
+                stacks, _ = pad_and_shard(
+                    [torch.from_numpy(np.stack([g[1][k] for g in good]))
+                     for k in range(4)], mesh)
+                beta_b, u_b, v_b, w_b = (a.to(dev) for a in stacks)
+                # the bounds depend on the shape alone
                 g0 = VolumeGrid(beta_b[0], u_b[0], v_b[0], w_b[0])
                 per_view = []
                 for cam_pos, look_at in cams:
@@ -190,6 +206,8 @@ def _build_velocity_maps_batched(input_root, output_root, csv_path, mode,
                             g0.max_bound, cam_pos, look_at,
                             float(slice_height_m), float(reference_plane_z),
                             res, float(fov))
+                    if mesh is not None:
+                        maps = [mesh.all_gather(m)[:len(good)] for m in maps]
                     per_view.append([m.cpu().numpy() for m in maps])
             except Exception as e:  # e.g. mixed patch shapes in one chunk
                 log(f"[velocity_maps] chunk failed in {folder}: {e}")
@@ -197,8 +215,9 @@ def _build_velocity_maps_batched(input_root, output_root, csv_path, mode,
             for bi, (pkl_file, _) in enumerate(good):
                 base = os.path.splitext(pkl_file)[0]
                 for view_idx, (u_m, v_m, w_m) in enumerate(per_view):
-                    _write_maps(out_dir, base, t, view_idx, suffix,
-                                u_m[bi], v_m[bi], w_m[bi])
+                    if writer:
+                        _write_maps(out_dir, base, t, view_idx, suffix,
+                                    u_m[bi], v_m[bi], w_m[bi])
                     written += 1
     log(f"[velocity_maps] wrote {written} map pkls")
     return written

@@ -40,7 +40,8 @@ from ..core.dtypes import DEFAULT_POLICY, Policy
 from ..ops.blocks import double_conv
 from ..ops.conv import Conv2d, batchnorm, conv2d, max_pool2d
 from ..ops.convlstm import ConvLSTM, convlstm, convlstm_zero_state
-from .layout import flatten_seq, to_batch_major, to_time_major, unflatten_seq
+from .layout import (flatten_seq, remat_call, to_batch_major, to_time_major,
+                     unflatten_seq)
 
 ENCODER_CHANNELS = (64, 64, 128, 256, 512)   # stages 1..5
 DECODER_CHANNELS = (256, 128, 64, 32, 16)
@@ -270,24 +271,33 @@ def resnet_unet_apply(m: PretrainedTemporalUNet, x_seq: torch.Tensor,
                       state: Optional[Dict[str, Any]] = None,
                       train: bool = False,
                       policy: Policy = DEFAULT_POLICY,
-                      use_pallas: bool = False, mesh=None
+                      use_pallas: bool = False, unroll: int = 1,
+                      remat: bool = False, flat_layout: str = "time",
+                      mesh=None
                       ) -> Tuple[torch.Tensor, Dict[str, Any],
                                  Dict[str, Any]]:
     """x_seq [B, T, H, W, in_channels] → (y_seq [B, T, H, W, out],
     new_state, {"encoder", "decoder"} BN stats). H and W must be divisible
     by 32. ``use_pallas`` runs every ConvLSTM's gate update through its
-    kernel. ``mesh``: train-mode BatchNorm over the data-parallel global
-    batch, and the model's tensor-parallel shards column-parallel over
-    its model group."""
+    kernel. ``flat_layout``: "time" or "batch" (models/layout.py).
+    ``remat``: the encoder under ``torch.utils.checkpoint``, as the JAX
+    package puts ``jax.checkpoint`` there (a frozen encoder runs without
+    gradients and keeps nothing to recompute). ``unroll``: accepted, no
+    effect (XLA's scan unroll). ``mesh``: train-mode BatchNorm over the
+    data-parallel global batch, and the model's tensor-parallel shards
+    column-parallel over its model group."""
+    del unroll            # no counterpart in eager PyTorch (ROADMAP.md §C)
     cfg = m.cfg
     B, T = x_seq.shape[0], x_seq.shape[1]
-    x_bt = flatten_seq(x_seq)
+    lay = flat_layout
+    x_bt = flatten_seq(x_seq, lay)
 
     frozen = cfg.freeze_encoder and not cfg.encoder_bn_train
     with torch.no_grad() if frozen else contextlib.nullcontext():
         # frozen: inference-mode BN, whose "new" stats are the running ones
-        feats, enc_stats = resnet18_encoder_apply(
-            m.encoder, x_bt, train and not frozen, policy, mesh)
+        feats, enc_stats = remat_call(
+            remat and not frozen, resnet18_encoder_apply, m.encoder, x_bt,
+            train and not frozen, policy, mesh)
 
     state = state or {}
     new_state: Dict[str, Any] = {}
@@ -296,11 +306,11 @@ def resnet_unet_apply(m: PretrainedTemporalUNet, x_seq: torch.Tensor,
         for i in range(len(ENCODER_CHANNELS) - 1)]
     for key, lstm, i in recurrences:
         out, new_state[key] = convlstm(
-            lstm, to_time_major(feats[i], B, T), state=state.get(key),
+            lstm, to_time_major(feats[i], B, T, lay), state=state.get(key),
             policy=policy, use_pallas=use_pallas, mesh=mesh)
-        feats[i] = to_batch_major(out, B, T).to(x_bt.dtype)
+        feats[i] = to_batch_major(out, B, T, lay).to(x_bt.dtype)
 
     y_bt, dec_stats = decoder_apply(m.decoder, m.segmentation_head[0],
                                     feats, train, policy, mesh)
-    return (unflatten_seq(y_bt, B, T), new_state,
+    return (unflatten_seq(y_bt, B, T, lay), new_state,
             {"encoder": enc_stats, "decoder": dec_stats})

@@ -27,7 +27,8 @@ from ..core.dtypes import DEFAULT_POLICY, Policy
 from ..ops.blocks import (DoubleConv, Down, OutConv, SpatialAttention, Up,
                           double_conv, down, out_conv, spatial_attention, up)
 from ..ops.convlstm import ConvLSTM, convlstm, convlstm_zero_state
-from .layout import flatten_seq, to_batch_major, to_time_major, unflatten_seq
+from .layout import (flatten_seq, remat_call, to_batch_major, to_time_major,
+                     unflatten_seq)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,7 +143,9 @@ def temporal_unet_apply(m: TemporalUNetDualView, x_seq: torch.Tensor,
                         train: bool = False,
                         policy: Policy = DEFAULT_POLICY,
                         use_pallas: bool = False,
-                        use_fused_doubleconv: bool = False, mesh=None
+                        use_fused_doubleconv: bool = False,
+                        unroll: int = 1, remat: bool = False,
+                        flat_layout: str = "time", mesh=None
                         ) -> Tuple[torch.Tensor, Dict[str, Any],
                                    Dict[str, Any]]:
     """Forward over a sequence.
@@ -151,39 +154,52 @@ def temporal_unet_apply(m: TemporalUNetDualView, x_seq: torch.Tensor,
     new BN stats). Pass ``state`` from a previous call to stream.
     ``use_pallas`` runs the ConvLSTM gate update through its kernel and
     ``use_fused_doubleconv`` the DoubleConvs through the fused conv kernel,
-    under the JAX package's flag names. (The JAX ``unroll``, ``remat`` and
-    ``flat_layout`` options tune XLA's scan, autodiff and sharding and have
-    no counterpart here yet.) ``mesh`` (``parallel.Mesh``): x_seq is this
-    rank's rows of a data-parallel batch, and train-mode BatchNorm takes
-    the global batch's statistics; the model's tensor-parallel shards
+    under the JAX package's flag names. ``flat_layout``: the frames' flatten
+    order, "time" or "batch" (models/layout.py). ``remat``: the per-frame
+    encoder and decoder under ``torch.utils.checkpoint`` (the JAX
+    ``jax.checkpoint``): their activations are recomputed in the backward
+    instead of kept, and the BatchNorm statistics the recomputation makes
+    are discarded (the first forward's are returned). ``unroll``: XLA's
+    scan unroll factor in the JAX package; accepted, with no effect on an
+    eager time loop. ``mesh`` (``parallel.Mesh``): x_seq is this rank's
+    rows of a data-parallel batch, and train-mode BatchNorm takes the
+    global batch's statistics; the model's tensor-parallel shards
     (``parallel.tensor.shard_model``) run column-parallel over the mesh's
     model group."""
+    del unroll            # no counterpart in eager PyTorch (ROADMAP.md §C)
     cfg = m.cfg
     B, T = x_seq.shape[0], x_seq.shape[1]
     fused = use_fused_doubleconv
+    lay = flat_layout
 
-    x_bt = flatten_seq(x_seq)
-    xb, skips, enc_stats = _encode(m, x_bt, train, policy, fused, mesh)
+    x_bt = flatten_seq(x_seq, lay)
+    xb, skips, enc_stats = remat_call(remat, _encode, m, x_bt, train,
+                                        policy, fused, mesh)
 
     state = state or {}
     xb_out_tm, new_temporal = convlstm(
-        m.temporal, to_time_major(xb, B, T), state=state.get("temporal"),
-        policy=policy, use_pallas=use_pallas, mesh=mesh)
+        m.temporal, to_time_major(xb, B, T, lay),
+        state=state.get("temporal"), policy=policy, use_pallas=use_pallas,
+        mesh=mesh)
     new_state: Dict[str, Any] = {"temporal": new_temporal}
 
     x3, x2, x1, x0 = skips
     if cfg.use_skip_lstm:
         x3_out, new_state["skip3"] = convlstm(
-            m.lstm_skip3, to_time_major(x3, B, T), state=state.get("skip3"),
-            policy=policy, use_pallas=use_pallas, mesh=mesh)
+            m.lstm_skip3, to_time_major(x3, B, T, lay),
+            state=state.get("skip3"), policy=policy, use_pallas=use_pallas,
+            mesh=mesh)
         x2_out, new_state["skip2"] = convlstm(
-            m.lstm_skip2, to_time_major(x2, B, T), state=state.get("skip2"),
-            policy=policy, use_pallas=use_pallas, mesh=mesh)
-        x3 = to_batch_major(x3_out, B, T)
-        x2 = to_batch_major(x2_out, B, T)
+            m.lstm_skip2, to_time_major(x2, B, T, lay),
+            state=state.get("skip2"), policy=policy, use_pallas=use_pallas,
+            mesh=mesh)
+        x3 = to_batch_major(x3_out, B, T, lay)
+        x2 = to_batch_major(x2_out, B, T, lay)
 
-    xb_bt = to_batch_major(xb_out_tm, B, T)
-    y_bt, dec_stats = _decode(m, xb_bt.to(x_bt.dtype), (x3, x2, x1, x0),
-                              train, policy, fused, mesh)
-    y_seq = unflatten_seq(y_bt, B, T)
+    xb_bt = to_batch_major(xb_out_tm, B, T, lay)
+    y_bt, dec_stats = remat_call(remat, _decode, m, xb_bt.to(x_bt.dtype),
+                                   (x3, x2, x1, x0), train, policy, fused,
+                                   mesh)
+    y_seq = unflatten_seq(y_bt, B, T, lay)
     return y_seq, new_state, {**enc_stats, **dec_stats}
+

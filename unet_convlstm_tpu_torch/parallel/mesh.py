@@ -29,9 +29,12 @@ The mesh is passed explicitly to whatever runs on it (bound into
 ``apply_fn`` like the policy); there is no module-level group.
 
 Collectives: NCCL for CUDA tensors, gloo for CPU tensors. The code calls
-two, all-reduce (sum) and all-gather, and gloo takes CUDA tensors for both
+all-reduce (sum) and all-gather, and gloo takes CUDA tensors for both
 (it copies them through the host itself), so several processes sharing one
-card can run the parallel code over gloo.
+card can run the parallel code over gloo. The pipelined ConvLSTM
+(``ops/convlstm_sp.py``) also hands a tensor to the next rank along an
+axis (``Mesh.ring_shift``, a send and a receive), which over gloo stages a
+CUDA tensor through the host itself.
 """
 
 from __future__ import annotations
@@ -140,6 +143,37 @@ class Mesh:
         bufs = [torch.empty_like(src) for _ in range(size)]
         dist.all_gather(bufs, src, group=group)
         return torch.cat(bufs, dim=dim)
+
+    def ring_shift(self, t: torch.Tensor, axis: str = "data"
+                   ) -> torch.Tensor:
+        """The previous rank's ``t`` along ``axis``: rank i sends its
+        ``t`` to rank i + 1 and receives rank i - 1's (mod the axis's
+        size), as ``lax.ppermute`` with the permutation i -> i + 1. One
+        ``dist.batch_isend_irecv`` in the axis's group; ``t`` itself on an
+        axis of one rank (or without a group). No gradient.
+
+        The transport follows the group's backend: NCCL sends CUDA tensors
+        as they are; gloo sends and receives CPU tensors only, so over
+        gloo a CUDA tensor goes through the host (copied to the CPU, sent,
+        received, copied back to its device). A failed send raises."""
+        group, size = self._groups(axis)
+        if not self.distributed or size == 1:
+            return t
+        me = self.data_rank if axis == "data" else self.model_rank
+        stage = self.backend == "gloo" and t.device.type != "cpu"
+        src = t.detach().to("cpu" if stage else t.device,
+                            memory_format=torch.contiguous_format, copy=True)
+        buf = torch.empty_like(src)
+
+        def peer(r):
+            return dist.get_global_rank(group, r % size)
+
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, src, peer(me + 1), group),
+            dist.P2POp(dist.irecv, buf, peer(me - 1), group)])
+        for w in works:
+            w.wait()
+        return buf.to(t.device) if stage else buf
 
 
 class _GlobalSum(torch.autograd.Function):

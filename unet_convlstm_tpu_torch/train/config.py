@@ -8,9 +8,15 @@ Keys the port accepts with another meaning, or none yet:
   trainer runs its hand-written kernels (the ConvLSTM gate update, forward
   and backward, and the fused 3x3 conv) on the card whatever the key says,
   as ``bench`` and ``serve`` do; their plain versions serve the CPU only.
-* ``flat_layout``, ``unroll``, ``remat``: XLA's sequence-flatten layout,
-  scan unroll and ``jax.checkpoint``. Accepted and without effect yet
-  (ROADMAP.md, queue A item 7c).
+* ``flat_layout``: the frames' flatten order (models/layout.py), "time",
+  "batch", or "auto": "batch" on a data mesh (``mesh_data`` > 1), else
+  "time", as the JAX ``fit`` resolves it.
+* ``remat``: the per-frame encoder and decoder (the ResNet18 family's
+  encoder) under ``torch.utils.checkpoint``, where the JAX package puts
+  ``jax.checkpoint``: less activation memory, a second forward of them in
+  the backward, the same result.
+* ``unroll``: XLA's scan unroll factor for the recurrences. Accepted and
+  without effect: the port's time loop is eager (ROADMAP.md, section C).
 * ``mesh_data`` and ``mesh_model``: the ``(data, model)`` mesh, as in the
   JAX package. ``mesh_data`` > 1 trains data parallel; ``mesh_model`` > 1
   splits every conv kernel by output channel over that many ranks, with
@@ -56,9 +62,9 @@ class TrainConfig:
     # runtime
     seed: int = 42
     use_pallas: bool = False      # see the module docstring
-    flat_layout: str = "auto"     # no effect yet
-    unroll: int = 10              # no effect yet
-    remat: bool = False           # no effect yet
+    flat_layout: str = "auto"     # "time", "batch" or "auto"
+    unroll: int = 10              # accepted, no effect (eager time loop)
+    remat: bool = False           # checkpoint the encoder and decoder
     mesh_data: Optional[int] = None   # None or 1: the one card
     mesh_model: int = 1
     zero1: bool = False

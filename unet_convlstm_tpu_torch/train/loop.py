@@ -288,8 +288,15 @@ def _fit(cfg, dataset, epochs, verbose, profile_dir, resume_from, dev,
             "weights will overwrite the init", stacklevel=2)
 
     _, init_fn, apply_fn, _ = build_model(cfg.model)
+    # flat_layout "auto": batch-major on a data mesh, as the JAX fit picks
+    # it (there it keeps XLA's reshapes device-local; models/layout.py)
+    flat_layout = cfg.flat_layout
+    if flat_layout == "auto":
+        flat_layout = "batch" if n_data > 1 else "time"
     apply_fn = functools.partial(apply_fn, use_pallas=True,
-                                 use_fused_doubleconv=True)
+                                 use_fused_doubleconv=True,
+                                 unroll=cfg.unroll, remat=cfg.remat,
+                                 flat_layout=flat_layout)
     model = init_fn(torch.Generator().manual_seed(cfg.seed), device=dev)
     sharding = None
     if mesh is not None and mesh.model > 1:

@@ -56,10 +56,6 @@ from ..parallel.tensor import check_sharded
 from .metrics import MetricSums, metric_sums_init, metric_sums_update
 from .optim import Optimizer
 
-_MULTI_STEP = ("make_multi_train_step (K steps per dispatch, a lax.scan in "
-               "the JAX package) is not ported to unet_convlstm_tpu_torch "
-               "yet (ROADMAP.md, queue A item 7c)")
-
 
 def _sum_sums(sums: MetricSums, mesh: Optional[Mesh]) -> MetricSums:
     """The metric sums over the ranks (one collective)."""
@@ -227,10 +223,42 @@ def _checked(step, sharding):
     return checked
 
 
-def make_multi_train_step(*args, **kwargs):
-    """K steps per dispatch (a ``lax.scan`` in the JAX package): not
-    ported."""
-    raise NotImplementedError(_MULTI_STEP)
+def make_multi_train_step(apply_fn: Callable, norm_stats: NormStats,
+                          use_mask: bool = False, grad_weight: float = 0.005,
+                          mesh=None, guard_nonfinite_stats: bool = False,
+                          accum_steps: int = 1):
+    """K training steps a call: (model, optimizer, x_raw [K, B, ...],
+    y_raw [K, B, ...]) → (losses [K], the metric sums summed over the K
+    steps).
+
+    The counterpart of the JAX package's ``lax.scan`` over the step body:
+    step k runs ``make_train_step``'s step on batch k (this rank's rows of
+    it under a ``mesh``), in order, threading the parameters, the
+    BatchNorm statistics and the optimizer state, so K calls of the
+    single step give the same bits. ``accum_steps`` > 1 composes: each of
+    the K steps accumulates over its own batch. A non-finite step under
+    ``guard_nonfinite_stats`` keeps its host verdict, step by step."""
+    step = make_train_step(apply_fn, norm_stats, use_mask=use_mask,
+                           grad_weight=grad_weight, mesh=mesh,
+                           guard_nonfinite_stats=guard_nonfinite_stats,
+                           accum_steps=accum_steps)
+
+    def multi_step(model, opt: Optimizer, x_raw: torch.Tensor,
+                   y_raw: torch.Tensor) -> Tuple[torch.Tensor, MetricSums]:
+        K = x_raw.shape[0]
+        if K < 1 or y_raw.shape[0] != K:
+            raise ValueError(f"x_raw and y_raw must be [K, B, ...] with the "
+                             f"same K >= 1, got {tuple(x_raw.shape)} and "
+                             f"{tuple(y_raw.shape)}")
+        losses, sums = [], []
+        for k in range(K):
+            loss, s = step(model, opt, x_raw[k], y_raw[k])
+            losses.append(loss)
+            sums.append(torch.stack(list(s)))
+        return torch.stack(losses), MetricSums(
+            *torch.stack(sums).sum(dim=0).unbind())
+
+    return multi_step
 
 
 def make_eval_step(apply_fn: Callable, norm_stats: NormStats,
