@@ -183,6 +183,21 @@ non-zero:
               process; whether gloo's own send takes CUDA tensors
               (recorded: the port stages them through the host). No
               parallel speed; multi-rank NCCL unverified.
+20. drivers — the examples and run drivers through ``python -m`` as a
+              user runs them (no --device: the card), all six at once, cut
+              to seconds: library_quickstart at its defaults (its
+              evaluation MAE equal to the best epoch's val MAE), render_one
+              on the debug volume at 64x64 (views.npz, the alignment
+              number), run_resnet_golden and pretrain_encoder at a few
+              samples and 1 epoch (the .pth freezes an encoder equal to the
+              checkpoint's), run_mnist_T40 at 32 samples over two process
+              generations, run_endurance_200ep at 4 epochs killed after 2
+              (the seam judged); the K1 and K2 launches of each (child
+              processes included) exact; then the rbg stream: uniforms on
+              the card bit-equal to the CPU's, and one rbg view at phase
+              6's geometry (the dense patch) on the threefry chain and on
+              the fused route (K4 once an iteration), each mean within 4
+              standard errors of the threefry view's.
 
 Phase 2 also holds the gate update forward (K1) where its vector route does
 not go (C = 12, a gates view 2 bytes off a 16-byte boundary), with f32
@@ -255,6 +270,7 @@ from unet_convlstm_tpu_torch.core.determinism import (
     deterministic, set_cublas_workspace_config)
 from unet_convlstm_tpu_torch.core.dtypes import (DEFAULT_POLICY, FP32_POLICY,
                                                  full_fp32)
+from unet_convlstm_tpu_torch.core import random as rnd
 from unet_convlstm_tpu_torch.datagen import mc_reference
 from unet_convlstm_tpu_torch.datagen.microphysics import process_cloud_vars
 from unet_convlstm_tpu_torch.datagen.overpass import synthesize_overpass_csv
@@ -5426,6 +5442,276 @@ def phase_mesh(workdir: str, mc_batch_pkls: dict):
             for name in ("gate_update", "gate_update_bwd", "conv3x3_fused")}
 
 
+# ---------------------------------------------------------------------------
+# 20. the examples and run drivers, and the rbg stream
+# ---------------------------------------------------------------------------
+
+DRIVER_TIMEOUT_S = 600
+DRIVER_PKG = "unet_convlstm_tpu_torch"
+RBG_SE_LIMIT = MC_SE_LIMIT
+DRIVERS_TOL = ("each driver exits 0 with its verdict line; K1 and K2 "
+               "launches exact (the endurance run's killed child excepted: "
+               "it is killed before it reports); the quickstart's "
+               "evaluation MAE equal to its best epoch's val MAE to the 6 "
+               "printed decimals; the rbg uniforms on the card bit-equal "
+               "to the CPU's; rbg views' means within "
+               f"{RBG_SE_LIMIT} standard errors of the threefry view's")
+
+
+def _fit_launches(npz, batch, k1_per_frame, k2_per_pass, epochs=1):
+    """A fit's K1 forward, backward and K2 launches: per train step and
+    eval batch of the 0.8 / seed-42 split, K1 k1_per_frame a frame."""
+    ds = NPZSequenceDataset(npz)
+    tr, va = ds.train_val_split(0.8, 42)
+    steps, evals = len(tr) // batch, math.ceil(len(va) / batch)
+    k1 = k1_per_frame * ds.T
+    return {"gate_update": (steps + evals) * k1 * epochs,
+            "gate_update_bwd": steps * k1 * epochs,
+            "conv3x3_fused": (steps + evals) * k2_per_pass * epochs}
+
+
+def _add(*counts):
+    return {k: sum(c.get(k, 0) for c in counts)
+            for k in ("gate_update", "gate_update_bwd", "conv3x3_fused")}
+
+
+def _gate_npz(work):
+    with open(os.path.join(work, "gate_dataset.json")) as f:
+        return json.load(f)["npz"]
+
+
+def _drivers(wd):
+    """(name, module, argv) of each driver, cut to seconds; the model
+    widths are the drivers' own."""
+    return [
+        ("library_quickstart", "examples.library_quickstart",
+         ["--work-dir", os.path.join(wd, "qs")]),
+        ("render_one", "examples.render_one",
+         ["--res", "64", "--out-dir", os.path.join(wd, "r1")]),
+        ("run_resnet_golden", "scripts.run_resnet_golden",
+         ["--npz", os.path.join(wd, "rg.npz"), "--out",
+          os.path.join(wd, "rg.json"), "--samples", "40", "--epochs", "1"]),
+        ("pretrain_encoder", "scripts.pretrain_encoder",
+         ["--work-dir", os.path.join(wd, "pt"), "--epochs", "1",
+          "--n-folders", "12", "--n-samples", "6", "--out",
+          os.path.join(wd, "pt.pth"), "--result-json",
+          os.path.join(wd, "pt.json")]),
+        ("run_mnist_T40", "scripts.run_mnist_T40",
+         ["--samples", "32", "--epochs", "2", "--epochs-per-proc", "1",
+          "--npz", os.path.join(wd, "t40.npz"), "--out",
+          os.path.join(wd, "t40.json")]),
+        ("run_endurance_200ep", "scripts.run_endurance_200ep",
+         ["--work-dir", os.path.join(wd, "en"), "--epochs", "4",
+          "--kill-at", "2", "--save-every", "1", "--out",
+          os.path.join(wd, "en.json")]),
+    ]
+
+
+def _k2_per_pass(base, hw):
+    """K2's launches in one pass of the custom model: the fused convs of
+    ``k2_convs`` whose input and output are both at least 16 channels
+    wide (``ops/blocks.double_conv``: narrower convs are library convs)."""
+    return sum(n for _, cin, cout, _, n in k2_convs(base, hw)
+               if min(cin, cout) >= 16)
+
+
+def _driver_checks(name, wd, out):
+    """(expected K1/K2 launches, checks, record) of one driver's run."""
+    k2_custom = _k2_per_pass(8, 64)
+    custom_frame = len(k1_levels(8, 64, 1))        # K1 launches a frame
+    lines = out.splitlines()
+    if name == "library_quickstart":
+        npz = os.path.join(wd, "qs", "mm.npz")
+        ds = NPZSequenceDataset(npz)
+        n_val = len(ds.train_val_split(0.8, 42)[1])
+        pass_ = {"gate_update": custom_frame * ds.T,
+                 "conv3x3_fused": k2_custom}
+        expect = _add(_fit_launches(npz, 16, custom_frame, k2_custom, 2),
+                      *[pass_] * math.ceil(n_val / 16),    # evaluate_model
+                      {"gate_update": custom_frame * ds.T,  # streaming
+                       "conv3x3_fused": k2_custom * ds.T})
+        mae = next(ln for ln in lines if ln.startswith("val MAE "))
+        rec = {"val_mae_line": mae}
+        checks = {"last_line": lines[-1] == "QUICKSTART_OK",
+                  "mae_equals_best_epoch": mae.split()[2]
+                  == mae.rsplit("val MAE ", 1)[1].rstrip(")")}
+    elif name == "render_one":
+        expect = _add()
+        with np.load(os.path.join(wd, "r1", "views.npz")) as f:
+            views, warped = f["views"], f["warped"]
+        align = next(ln for ln in lines if ln.startswith("alignment: "))
+        rec = {"views": list(views.shape), "alignment_line": align,
+               "figures": next(ln for ln in lines
+                               if ln.startswith("figures"))}
+        checks = {"views_finite_lit": bool(np.isfinite(views).all()
+                                           and (views.max(axis=(1, 2))
+                                                > 0).all()),
+                  "warped_finite": bool(np.isfinite(warped).all()),
+                  "alignment_finite": math.isfinite(float(
+                      align.split("= ")[1].split()[0]))}
+    elif name == "run_resnet_golden":
+        with open(os.path.join(wd, "rg.json")) as f:
+            rec = {k: v for k, v in json.load(f).items() if k != "history"}
+        expect = _fit_launches(os.path.join(wd, "rg.npz"), 16, 5, 0)
+        checks = {"val_mae_finite": math.isfinite(rec["val_mae"]),
+                  "encoder_trained": rec["encoder_frozen"] is False}
+    elif name == "pretrain_encoder":
+        with open(os.path.join(wd, "pt.json")) as f:
+            rec = json.load(f)
+        expect = _fit_launches(_gate_npz(os.path.join(wd, "pt")), 4, 10, 0)
+        checks = {"encoder_equals_checkpoint":
+                  rec["encoder_equals_checkpoint"],
+                  "frozen_on_pth": rec["frozen_on_pth"]}
+    elif name == "run_mnist_T40":
+        npz = os.path.join(wd, "t40.npz")
+        with open(os.path.join(wd, "t40.json")) as f:
+            rec = {k: v for k, v in json.load(f).items() if k != "history"}
+        k2_t40 = _k2_per_pass(32, 64)
+        expect = _add(_fit_launches(npz, 16, custom_frame, k2_t40, 2),
+                      {"gate_update": custom_frame * 40,     # rollout_scan
+                       "conv3x3_fused": k2_t40})
+        checks = {"two_generations": rec["process_generations"] == 2,
+                  "rollout_finite": math.isfinite(rec["rollout_psnr_db"])
+                  and math.isfinite(rec["rollout_ssim"])}
+    else:
+        with open(os.path.join(wd, "en.json")) as f:
+            rec = json.load(f)
+        per_epoch = _fit_launches(_gate_npz(os.path.join(wd, "en")), 4, 10,
+                                  0)
+        resumed = rec["epochs_logged"] - rec["sigkill_after_epoch"]
+        expect = _add(per_epoch, *[per_epoch] * resumed)
+        checks = {"endurance_ok": lines[-1] == "[endure] ENDURANCE_OK",
+                  "seam_ok": rec["resume_seam_ok"],
+                  "replay_within_one_period": rec["resume_replayed_epochs"]
+                  <= rec["save_last_every"] + 1}
+        rec = {k: v for k, v in rec.items() if k != "lr_trajectory"}
+    return expect, checks, rec
+
+
+def phase_drivers_runs(wd):
+    """Every driver through ``python -m`` with no --device (the card), all
+    six at once; each prints its launches (its child processes'
+    included). Returns the K1/K2 launches summed over the drivers."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = {}
+    t0 = time.perf_counter()
+    for name, module, argv in _drivers(wd):
+        log = open(os.path.join(wd, f"{name}.out"), "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", f"{DRIVER_PKG}.{module}", *argv],
+            cwd=wd, env=env, stdout=log, stderr=subprocess.STDOUT,
+            text=True), log, module, argv)
+    total, ok = _add(), True
+    for name, (p, log, module, argv) in procs.items():
+        try:
+            rc = p.wait(timeout=max(1.0, DRIVER_TIMEOUT_S
+                                    - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = p.wait()
+        wall = time.perf_counter() - t0
+        log.close()
+        with open(os.path.join(wd, f"{name}.out")) as f:
+            out = f.read()
+        line = {"phase": "drivers", "driver": name,
+                "command": f"python -m {DRIVER_PKG}.{module} "
+                           + " ".join(argv), "exit_code": rc,
+                "done_after_s": wall}
+        try:
+            launches = [ln for ln in out.splitlines()
+                        if ln.startswith("launches ")]
+            counts = json.loads(launches[-1].split(" ", 1)[1])
+            expect, checks, rec = _driver_checks(name, wd, out)
+            got = {k: counts[k] for k in expect}
+            line.update(launches=got, expected=expect, checks=checks,
+                        result=rec, other_launches={
+                            k: v for k, v in counts.items()
+                            if k not in expect and v})
+            line["ok"] = (rc == 0 and got == expect
+                          and all(checks.values())
+                          and not line["other_launches"])
+            total = _add(total, got)
+        except (IndexError, KeyError, OSError, ValueError,
+                StopIteration) as e:
+            line.update(ok=False, error=repr(e))
+        if not line["ok"]:
+            line["output_tail"] = out[-3000:]
+        emit(line)
+        ok = ok and line["ok"]
+    if not ok:
+        raise AssertionError("a driver failed")
+    return total
+
+
+def phase_drivers_rbg():
+    """The rbg stream on the card: uniforms bit-equal to the CPU's; one
+    view at phase 6's geometry (the dense patch at its auto cell) on the
+    threefry chain and on the fused route against the threefry view.
+    Returns the fused view's K4 launches."""
+    keys = rnd.split(rnd.rbg_key(SEED), MC_SPP)
+    card = rnd.uniform(keys.to(DEV), MC_LANES).cpu()
+    cpu = rnd.uniform(keys, MC_LANES)
+    carry = torch.tensor([[5, 9, 2 ** 32 - 1, 2 ** 32 - 1],
+                          [2 ** 32 - 1, 7, 2 ** 32 - 5, 2 ** 32 - 1]])
+    raw_equal = torch.equal(rnd.xla_philox_bits(carry.to(DEV), 4099).cpu(),
+                            rnd.xla_philox_bits(carry, 4099))
+    line = {"phase": "rbg_bits", "keys": MC_SPP, "uniforms": MC_LANES,
+            "bit_equal": torch.equal(card.view(torch.int32),
+                                     cpu.view(torch.int32)),
+            "raw_bits_with_carries_equal": raw_equal,
+            "in_unit_interval": bool((card >= 0).all() and (card < 1).all())}
+    line["ok"] = all(line[k] for k in ("bit_equal",
+                                       "raw_bits_with_carries_equal",
+                                       "in_unit_interval"))
+    emit(line)
+    beta = mc_patches()["dense"]
+    scene = VolumeScene(torch.from_numpy(beta).to(DEV), 20.0)
+    sun = np.asarray(MC_CAMERA["sun_dir"], np.float32)
+    t_sun = sun_transmittance(scene, sun / np.linalg.norm(sun))
+    cell = mc_reference.auto_majorant_cell(float(beta.max()), scene.diagonal)
+    views, ok = {}, line["ok"]
+    for rng_impl, fused in (("threefry", False), ("rbg", False),
+                            ("rbg", True)):
+        img, wall, stats, counts = _mc_view(scene, t_sun, cell, fused,
+                                            rng_impl=rng_impl)
+        rm = np.asarray(stats["round_means"])[:, 0]
+        expect = dict({k: 0 for k in counts}, mc_sample_flights=(
+            stats["iterations"] if fused else 0))
+        v = {"phase": "rbg_view", "patch": "dense", "rng_impl": rng_impl,
+             "route": "fused" if fused else "threefry_chain",
+             "majorant_cell": cell, "spp": MC_SPP, "wall_s": wall,
+             "iterations": stats["iterations"], "launches": counts,
+             "expected": expect, "mean": float(img.mean()),
+             "se": float(rm.std(ddof=1) / np.sqrt(len(rm))),
+             "finite": bool(torch.isfinite(img).all()),
+             "nonnegative": bool((img >= 0).all())}
+        ref = views.get(("threefry", False))
+        if ref is not None:
+            v["z_vs_threefry"] = abs(v["mean"] - ref["mean"]) / max(
+                math.hypot(v["se"], ref["se"]), 1e-30)
+        v["ok"] = (counts == expect and v["finite"] and v["nonnegative"]
+                   and v.get("z_vs_threefry", 0.0) <= RBG_SE_LIMIT)
+        emit(v)
+        views[rng_impl, fused] = v
+        ok = ok and v["ok"]
+    if not ok:
+        raise AssertionError("the rbg stream on the card failed")
+    return views["rbg", True]["launches"]["mc_sample_flights"]
+
+
+def phase_drivers(workdir: str):
+    """Phase 20: the drivers, then the rbg stream. Returns the drivers'
+    K1/K2 launches and the rbg fused view's K4 launches."""
+    t0 = time.perf_counter()
+    os.makedirs(workdir, exist_ok=True)
+    counts = phase_drivers_runs(workdir)
+    k4 = phase_drivers_rbg()
+    emit({"phase": "drivers_summary", "launches": counts,
+          "rbg_mc_sample_flights": k4,
+          "phase_wall_s": time.perf_counter() - t0, "ok": True})
+    return counts, k4
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5482,7 +5768,8 @@ def main() -> int:
           "repro": ("K2's y, sum and sumsq over 20 launches, the training "
                     "steps run twice, the production gate run twice: "
                     "bit-equal"),
-          "dp": DP_TOL_WHY, "tp": TP_TOL_WHY, "mesh": MESH_TOL_WHY})
+          "dp": DP_TOL_WHY, "tp": TP_TOL_WHY, "mesh": MESH_TOL_WHY,
+          "drivers": DRIVERS_TOL})
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     k1 = check_k1(gen, K1_LEVELS, B, "request")
     k1_edges = check_k1_edges(gen)
@@ -5534,6 +5821,9 @@ def main() -> int:
         tp_counts, k2_tp = phase_tp(workdir, gen)
         torch.cuda.empty_cache()
         mesh_counts = phase_mesh(workdir, mc_batch_pkls)
+        torch.cuda.empty_cache()
+        driver_counts, rbg_k4 = phase_drivers(
+            os.path.join(workdir, "drivers"))
 
     per = f"one request: B={B}, T={T}, {HW}x{HW}, base_ch {BASE}, bf16"
     per_step = (f"one training step: B={TB}, T={TT}, {THW}x{THW}, base_ch "
@@ -5625,7 +5915,9 @@ def main() -> int:
         k["dp_launches_per_rank_per_step"] = dp_counts[k["name"]]
         k["tp_launches_per_rank_per_step"] = tp_counts[k["name"]]
         k["mesh_launches"] = mesh_counts[k["name"]]
+        k["drivers_launches"] = driver_counts[k["name"]]
     kernels[3]["datachain_launches"] = chain_counts["mc_sample_flights"]
+    kernels[3]["rbg_launches"] = rbg_k4
     kernels[0]["resnet"] = resnet["gate_update"]
     kernels[2]["resnet"] = resnet["gate_update_bwd"]
     kernels.append({

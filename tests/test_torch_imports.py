@@ -71,7 +71,10 @@ COVERED = ("ops.kernels.convlstm_fused", "serve", "train.steps",
            "datagen.raycast", "datagen.velocity_maps", "datagen.alignment",
            "datagen.sequences", "train.cloud_gate", "native.build",
            "viz.checks", "viz.viewers", "viz.dashboard3d",
-           "viz.sequences_video", "viz.legacy_viewer", "viz.optional")
+           "viz.sequences_video", "viz.legacy_viewer", "viz.optional",
+           "examples.library_quickstart", "examples.render_one",
+           "scripts.run_resnet_golden", "scripts.pretrain_encoder",
+           "scripts.run_mnist_T40", "scripts.run_endurance_200ep")
 
 
 def test_every_module_imports_with_jax_blocked():

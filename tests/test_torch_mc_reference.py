@@ -8,6 +8,7 @@ at most 1% of pixels, where a last-ulp difference of log/cos between the
 two libraries can send a lane to another voxel (0 such pixels seen on these
 scenes)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ import torch
 
 from unet_convlstm_tpu.datagen import mc_reference as JM
 from unet_convlstm_tpu.datagen import renderer as JR
+from unet_convlstm_tpu_torch.core import random as rnd
 from unet_convlstm_tpu_torch.datagen import mc_reference as TM
 from unet_convlstm_tpu_torch.datagen import renderer as TR
 from unet_convlstm_tpu_torch.ops.kernels import launch_counts, reset_launches
@@ -145,7 +147,85 @@ def test_calibrate_ms_scale_matches_jax(scenes):
     assert abs(diag["mean_mc"] - dj["mean_mc"]) <= 1e-3 * dj["mean_mc"]
 
 
-def test_rbg_stream_is_not_ported(scenes):
+def _u32(a) -> np.ndarray:
+    return np.asarray(a).astype(np.uint32).astype(np.int64)
+
+
+@pytest.mark.parametrize("seed", [0, 3, -1, 2**31 - 1])
+def test_rbg_keys_equal_jax(seed):
+    """The rbg key, its splits (one and two levels) and fold-ins carry
+    JAX's key data bit for bit, as the tracer's round keys do."""
+    kj = jax.random.key(seed, impl="rbg")
+    kt = rnd.rbg_key(seed)
+    np.testing.assert_array_equal(kt.numpy(), _u32(jax.random.key_data(kj)))
+    for n in (1, 4, 5):
+        np.testing.assert_array_equal(
+            rnd.split(kt, n).numpy(),
+            _u32(jax.random.key_data(jax.random.split(kj, n))))
+    kjs = jax.random.split(kj, 3)
+    np.testing.assert_array_equal(
+        rnd.split(rnd.split(kt, 3), 4).numpy(),
+        np.stack([_u32(jax.random.key_data(jax.random.split(k, 4)))
+                  for k in kjs]))
+    for data in (0, 7, 2**32 - 1):
+        np.testing.assert_array_equal(
+            rnd.fold_in(kt, data).numpy(),
+            _u32(jax.random.key_data(jax.random.fold_in(kj, data))))
+    np.testing.assert_array_equal(
+        TM.round_keys(seed, 6, "cpu", "rbg").numpy(),
+        _u32(jax.random.key_data(jax.random.split(kj, 6))))
+
+
+def test_rbg_bits_equal_jax():
+    """``uniform`` on rbg keys is ``jax.random.uniform``'s f32 bit for bit
+    (XLA's Philox expansion on the CPU), at lengths that end inside a
+    4-word block; raw bits equal ``lax.rng_bit_generator``'s on keys whose
+    128-bit counter carries across every word."""
+    kjs = jax.random.split(jax.random.key(11, impl="rbg"), 3)
+    keys = rnd.split(rnd.rbg_key(11), 3)
+    for n in (1, 6, 8, 301):
+        got = rnd.uniform(keys, n).numpy()
+        want = np.stack([np.asarray(jax.random.uniform(k, (n,)))
+                         for k in kjs])
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+    words = np.random.default_rng(0).integers(0, 2**32, (6, 4))
+    words[0, 2:] = words[1, 1:] = words[2, 2] = 2**32 - 1
+    for w in words:
+        _, bits = jax.lax.rng_bit_generator(
+            jnp.asarray(w.astype(np.uint32)), (37,), dtype=jnp.uint32)
+        np.testing.assert_array_equal(
+            rnd.xla_philox_bits(torch.from_numpy(w), 37).numpy(),
+            _u32(bits))
+
+
+@pytest.mark.parametrize("majorant_cell", [0, 4])
+def test_rbg_route_matches_jax(scenes, majorant_cell):
+    js, ts = scenes
+    kw = dict(**KW, spp=4, max_depth=8, seed=3, majorant_cell=majorant_cell,
+              rng_impl="rbg")
+    assert_mc_close(TM.mc_radiance(ts, **kw), JM.mc_radiance(js, **kw))
+
+
+def test_rbg_rng_impl_same_estimator(scenes):
+    """The port's copy of tests/test_mc_reference.py's
+    test_mc_rbg_rng_impl_same_estimator: deterministic per seed,
+    chunk-invariant, another stream than threefry, and the same estimator
+    (image means within 0.25 relative at spp 256)."""
     _, ts = scenes
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.mc_radiance(ts, **KW, spp=2, rng_impl="rbg")
+    a = TM.mc_radiance(ts, **KW, spp=64, seed=3, rng_impl="rbg")
+    b = TM.mc_radiance(ts, **KW, spp=64, seed=3, rng_impl="rbg")
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    chunked = TM.mc_radiance(ts, **KW, spp=64, seed=3, rng_impl="rbg",
+                             spp_chunk=16)
+    np.testing.assert_allclose(chunked.numpy(), a.numpy(), rtol=1e-6,
+                               atol=1e-9)
+    tf = TM.mc_radiance(ts, **KW, spp=64, seed=3)
+    assert float((a - tf).abs().max()) > 0
+    a256 = TM.mc_radiance(ts, **KW, spp=256, seed=3, rng_impl="rbg")
+    tf256 = TM.mc_radiance(ts, **KW, spp=256, seed=3)
+    rel = abs(float(a256.mean()) - float(tf256.mean())) \
+        / max(float(tf256.mean()), 1e-12)
+    assert rel < 0.25, rel
+    with pytest.raises(ValueError, match="rng_impl"):
+        TM.mc_radiance(ts, **KW, spp=2, rng_impl="philox")

@@ -67,6 +67,18 @@ def test_base_seed_and_weyl_seeds_equal_jax_expressions(seed):
             assert int(rnd.weyl_seed(base, i)) == weyl
 
 
+@pytest.mark.parametrize("seed", [0, 5, -3, 2**31 - 1])
+def test_base_seed_of_rbg_keys_equals_jax_expression(seed):
+    """With an rbg key the fused sampler's seed folds words 0 and 3, as
+    ``kb[0] ^ kb[-1]`` does on the raveled key data."""
+    kjs = jax.random.key_data(jax.random.split(
+        jax.random.key(seed, impl="rbg"), 4))
+    for kd in kjs:
+        kb = jax.lax.bitcast_convert_type(kd, jnp.int32).ravel()
+        want = int(kb[0] ^ (kb[-1] * jnp.int32(2654435761 - (1 << 32))))
+        assert int(rnd.base_seed(torch.from_numpy(_u32(kd)))) == want
+
+
 @pytest.mark.parametrize("counter, key, want", [
     ((0, 0, 0, 0), (0, 0), "6627e8d5 e169c58d bc57ac4c 9b00dbd8"),
     ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,

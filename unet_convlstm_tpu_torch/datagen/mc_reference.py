@@ -32,6 +32,12 @@ Two sampler routes:
   (``ops/kernels/mc_sampler.py``, Philox instead of the TPU's hardware
   PRNG), seeded by each round's ``base_seed`` and the Weyl sequence. A
   different unbiased realization of the same estimator.
+
+``rng_impl="rbg"`` swaps the keys: ``jax.random.key(seed, impl="rbg")``'s
+four-word keys, split as JAX splits them, with uniforms from XLA's Philox
+expansion (``core/random.py``), the bits JAX draws on the CPU. On the
+fused route the base seed takes words 0 and 3 of such a key, as JAX's
+``kb[0] ^ kb[-1]`` does.
 """
 
 from __future__ import annotations
@@ -220,7 +226,7 @@ def _mc_radiance_impl(beta, t_sun, voxel_size: float, min_bound, max_bound,
                       check_every: int = CHECK_EVERY,
                       stats: Optional[dict] = None):
     """The radiance SUM over sample rounds of every patch: beta, t_sun
-    [P, Z, Y, X], keys [P, R, 2] (one key per round of each patch) →
+    [P, Z, Y, X], keys [P, R, W] (one key per round of each patch) →
     [P, H, W]. Rounds are added in order (acc + L per round, as the JAX
     scan adds them); rounds run together in lockstep loops of at most
     ``LANE_BUDGET`` lanes. ``max_events`` is a plain loop bound (nothing
@@ -245,7 +251,7 @@ def _mc_radiance_impl(beta, t_sun, voxel_size: float, min_bound, max_bound,
         r = kr.shape[1]
         L, its = _trace(beta, t_sun, vs, mn, mx, rays, sun_dir, g,
                    f32(albedo, dev), f32(irradiance, dev),
-                   kr.reshape(P * r, 2), patch_of.repeat_interleave(r),
+                   kr.reshape(P * r, -1), patch_of.repeat_interleave(r),
                    int(max_depth), int(max_events), int(majorant_cell),
                    bool(use_fused_sampler), int(check_every))
         L = L.reshape(P, r, N)
@@ -298,9 +304,18 @@ def auto_majorant_cell(beta_max: float, diagonal: float) -> int:
     return DEFAULT_MAJORANT_CELL if beta_max * diagonal >= 128.0 else 0
 
 
-def round_keys(seed: int, spp: int, device) -> torch.Tensor:
-    """``jax.random.split(jax.random.PRNGKey(seed), spp)``: [spp, 2]."""
-    return rnd.split(rnd.prng_key(seed, device), int(spp))
+def round_keys(seed: int, spp: int, device,
+               rng_impl: str = "threefry") -> torch.Tensor:
+    """``jax.random.split(jax.random.PRNGKey(seed), spp)``: [spp, 2]; with
+    ``rng_impl="rbg"`` the split of ``jax.random.key(seed, impl="rbg")``'s
+    data: [spp, 4]."""
+    if rng_impl == "threefry":
+        key = rnd.prng_key(seed, device)
+    elif rng_impl == "rbg":
+        key = rnd.rbg_key(seed, device)
+    else:
+        raise ValueError(f"rng_impl={rng_impl!r}: 'threefry' or 'rbg'")
+    return rnd.split(key, int(spp))
 
 
 def mc_radiance(scene: VolumeScene, origin, target, up=(1.0, 0.0, 0.0),
@@ -326,15 +341,10 @@ def mc_radiance(scene: VolumeScene, origin, target, up=(1.0, 0.0, 0.0),
     ``use_fused_sampler`` is the counterpart of the JAX package's
     ``use_pallas_sampler``: the fused sampling kernel (Philox) replaces
     the threefry chain, a different unbiased realization. ``rng_impl``
-    "threefry" is the only stream the port has: XLA's RngBitGenerator
-    ("rbg") has no torch counterpart. ``stats``, when given, gains the
+    "threefry" (default) or "rbg" picks the keys and their stream, each
+    the one JAX draws on the CPU. ``stats``, when given, gains the
     lockstep ``iterations`` run and the image mean of each sample round
     (``round_means``)."""
-    if rng_impl != "threefry":
-        raise NotImplementedError(
-            f"rng_impl={rng_impl!r}: XLA's RngBitGenerator stream has no "
-            "torch counterpart; only 'threefry' is ported (ROADMAP.md, "
-            "queue A item 2: stage B)")
     dev = scene.beta.device
     sun = _normalize(f32(np.asarray(sun_dir, np.float32), dev))
     if t_sun is None:
@@ -347,7 +357,7 @@ def mc_radiance(scene: VolumeScene, origin, target, up=(1.0, 0.0, 0.0),
         max_events = default_max_events(
             beta_max, scene.diagonal, float(scene.voxel_size),
             majorant_cell)
-    keys = round_keys(seed, spp, dev)[None]            # [1, spp, 2]
+    keys = round_keys(seed, spp, dev, rng_impl)[None]  # [1, spp, W]
 
     def run(c, n):
         return _mc_radiance_impl(

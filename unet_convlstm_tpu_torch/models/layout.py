@@ -33,12 +33,14 @@ def _check(layout: str) -> None:
 
 def flatten_seq(x_seq: torch.Tensor, layout: str = "time") -> torch.Tensor:
     """[B, T, h, w, c] → flattened frames for the conv path: [T*B, ...]
-    (row t*B + b) for "time", [B*T, ...] (row b*T + t) for "batch"."""
+    (row t*B + b) for "time", [B*T, ...] (row b*T + t) for "batch";
+    dense NHWC whatever x_seq's strides (the kernels take no strided
+    input, and a library conv keeps its input's memory format)."""
     _check(layout)
     B, T = x_seq.shape[0], x_seq.shape[1]
     if layout == "time":
         x_seq = x_seq.transpose(0, 1)
-    return x_seq.reshape(T * B, *x_seq.shape[2:])
+    return x_seq.reshape(T * B, *x_seq.shape[2:]).contiguous()
 
 
 def unflatten_seq(y_flat: torch.Tensor, B: int, T: int,

@@ -7,10 +7,14 @@ the gate update forward's, the fused conv's and the int8 conv's counts by
 route (``convlstm_fused.launches_by_route``,
 ``doubleconv_fused.launches_by_route``, ``conv_int8.launches_by_route``)
 and the int8 conv's by entry (``conv_int8.launches_by_entry``).
+``save_launches`` and ``launches_with`` carry the counts of a driver's
+child processes to the driver (``scripts/``).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict
 
 from . import (chained_gather, channel_stats, conv_int8, convlstm_fused,
@@ -42,3 +46,23 @@ def reset_launches() -> None:
                      conv_int8.launches_by_entry):
         for route in by_route:
             by_route[route] = 0
+
+
+def save_launches(path: str) -> None:
+    """Add this process's launch counts to those in the JSON file ``path``
+    (created when absent)."""
+    total = launches_with(path)
+    with open(path, "w") as f:
+        json.dump(total, f)
+
+
+def launches_with(*paths: str) -> Dict[str, int]:
+    """This process's launch counts plus those saved in each of ``paths``
+    that exists."""
+    total = launch_counts()
+    for path in paths:
+        if os.path.exists(path):
+            with open(path) as f:
+                for name, n in json.load(f).items():
+                    total[name] = total.get(name, 0) + n
+    return total
