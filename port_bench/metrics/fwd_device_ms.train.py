@@ -1,0 +1,11 @@
+"""The card's milliseconds a step of the traced window between the events
+of the program's ``step.forward`` spans (normalize to loss), idle inside
+included."""
+
+from port_bench.metrics import _program
+
+
+def read(view):
+    if view.kind != "train":
+        return None
+    return _program.device_ms(view, "step.forward")

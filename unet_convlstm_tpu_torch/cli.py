@@ -776,7 +776,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--config", help="JSON TrainConfig file")
     t.add_argument("--npz", help="dataset npz path")
     t.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace of steps 10-20")
+                   help="write a torch.profiler trace of steps 10-20 "
+                        "(trace.json) and the program's spans of the same "
+                        "steps (spans.json)")
     t.add_argument("--resume", default=None,
                    help="training checkpoint (.pt) to resume from (true "
                         "resume: optimizer + scheduler + epoch restored)")

@@ -8,6 +8,8 @@ unet_convlstm_tpu/data/pipeline.py).
   current step runs: pinned host buffers, copies on a side stream, and an
   event the consumer's stream waits on, so the host gather of batch k+1
   overlaps the device work of batch k.
+* A batch's gather and its staging (the pinned copy and the copy's launch)
+  are the ``data.gather`` and ``data.stage`` spans (``core/trace.py``).
 * ``make_grain_loader`` is the JAX package's grain loader on PyTorch's
   ``DataLoader``: the same batches, gathered in worker processes when
   asked; its shuffled order is its own.
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 import torch.utils.data
 
+from ..core import trace
 from ..core.dtypes import resolve_device
 
 
@@ -58,7 +61,9 @@ class SequenceLoader:
                 if self.drop_remainder else len(order))
         for i in range(0, stop, self.batch_size):
             batch_idx = np.sort(order[i:i + self.batch_size])  # sorted gather
-            yield self.dataset.get_batch_raw(batch_idx)
+            with trace.span("data.gather"):
+                batch = self.dataset.get_batch_raw(batch_idx)
+            yield batch
 
 
 def pad_batch(x: np.ndarray, y: np.ndarray, batch_size: int):
@@ -89,15 +94,17 @@ def prefetch_to_device(iterator, size: int = 2, device=None):
     side = torch.cuda.Stream(dev) if cuda else None
 
     def put(batch):
-        if not cuda:
-            return tuple(torch.from_numpy(np.asarray(a)).to(dev)
-                         for a in batch), None
-        with torch.cuda.stream(side):
-            out = tuple(torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
-                        .to(dev, non_blocking=True) for a in batch)
-            done = torch.cuda.Event()
-            done.record(side)
-        return out, done
+        with trace.span("data.stage"):
+            if not cuda:
+                return tuple(torch.from_numpy(np.asarray(a)).to(dev)
+                             for a in batch), None
+            with torch.cuda.stream(side):
+                out = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                            .pin_memory().to(dev, non_blocking=True)
+                            for a in batch)
+                done = torch.cuda.Event()
+                done.record(side)
+            return out, done
 
     def take(entry):
         out, done = entry

@@ -24,6 +24,10 @@ The step runs the model with both hand-written kernel flags on (the ConvLSTM
 gate update and the fused 3x3 conv; the ResNet18 family's decoder does not
 fuse, as in the JAX package), under ``torch.inference_mode()``.
 Device work is serialized with a lock (one card, many HTTP threads).
+A request's spans (``core/trace.py``): ``serve.stage_in`` (the frame
+blocks' concatenation, the sessions' states concatenated, the host→card
+copy), ``serve.forward`` (the step's dispatch) and ``serve.stage_out`` (the
+card→host copy, the states' split).
 
 ``int8=True`` serves the post-training int8 model (``ops/quant.py``): every
 conv int8 on the card's int8 kernel (K8) with dynamic activation scales, or
@@ -44,6 +48,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .core import trace
 from .core.dtypes import DEFAULT_POLICY, resolve_device
 from .models.registry import build_model, model_from_checkpoint
 from .ops.normalize import NormStats, denormalize_y, normalize_x
@@ -181,8 +186,12 @@ class StreamingPredictor:
                 if self._sessions.get(sid) is not s:
                     raise KeyError(f"unknown session {sid!r}")
             with self._device_lock:     # one card, many threads
-                y, new_state = self._step(self._to_device(frames), s.state)
-                y_host = y.cpu().numpy()
+                with trace.span("serve.stage_in"):
+                    x = self._to_device(frames)
+                with trace.span("serve.forward"):
+                    y, new_state = self._step(x, s.state)
+                with trace.span("serve.stage_out"):
+                    y_host = y.cpu().numpy()
             s.state = new_state
             s.frames_seen += frames.shape[1]
         return y_host
@@ -228,17 +237,27 @@ class StreamingPredictor:
                 with self._sessions_lock:
                     if self._sessions.get(sids[i]) is not sess[i]:
                         raise KeyError(f"unknown session {sids[i]!r}")
-            x_all = np.concatenate([np.asarray(f, np.float32)
-                                    for f in frames_list], axis=0)
+            # staging in and out are two spans each, either side of the
+            # device lock
+            with trace.span("serve.stage_in"):
+                x_all = np.concatenate([np.asarray(f, np.float32)
+                                        for f in frames_list], axis=0)
             with self._device_lock:
-                state = _map_state(lambda *a: torch.cat(a, dim=0),
-                                   *(s.state for s in sess))
-                y, new_state = self._step(self._to_device(x_all), state)
-                y_host = y.cpu().numpy()
-            for i, s in enumerate(sess):
-                s.state = _map_state(
-                    lambda a, i=i: a[i * B:(i + 1) * B].clone(), new_state)
-                s.frames_seen += T
+                with trace.span("serve.stage_in"):
+                    state = _map_state(lambda *a: torch.cat(a, dim=0),
+                                       *(s.state for s in sess))
+                    x = self._to_device(x_all)
+                with trace.span("serve.forward"):
+                    y, new_state = self._step(x, state)
+                    del x           # back to the pool before the split
+                with trace.span("serve.stage_out"):
+                    y_host = y.cpu().numpy()
+            with trace.span("serve.stage_out"):
+                for i, s in enumerate(sess):
+                    s.state = _map_state(
+                        lambda a, i=i: a[i * B:(i + 1) * B].clone(),
+                        new_state)
+                    s.frames_seen += T
             return [y_host[i * B:(i + 1) * B] for i in range(len(sess))]
         finally:
             for s in held:

@@ -16,7 +16,9 @@ checkpoint, an optional periodic ``_last`` checkpoint and the final one.
   (``resume_from``), with the loader's shuffle continuing at the resumed
   epoch.
 * ``profile_dir``: a ``torch.profiler`` trace of steps 10-20
-  (``trace.json``), best-effort.
+  (``trace.json``) and the program's spans of the same steps
+  (``spans.json``: Chrome trace events in microseconds on
+  ``time.perf_counter``, the profiler's start in the file), best-effort.
 * Unlike the JAX loop (ADVICE.md r5 "medium", its ``loop.py:447``), the
   periodic ``_last`` checkpoint records the best val loss after this
   epoch's best-val update.
@@ -53,6 +55,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 
+from ..core import trace
 from ..core.determinism import deterministic
 from ..core.dtypes import resolve_device
 from ..data.npz_dataset import NPZSequenceDataset
@@ -163,11 +166,14 @@ def _read(loss_sum: torch.Tensor, sums: MetricSums):
 
 
 class _Profiler:
-    """A best-effort ``torch.profiler`` trace of a window of steps."""
+    """A best-effort ``torch.profiler`` trace of a window of steps
+    (``trace.json``), and the program's spans of the same window
+    (``spans.json``, ``core/trace.py``)."""
 
     def __init__(self, out_dir: Optional[str], device, log):
         self.out_dir, self.device, self.log = out_dir, device, log
         self.prof = None
+        self.t0 = 0.0
 
     def step(self, global_step: int) -> None:
         if self.out_dir and global_step == PROFILE_STEPS[0]:
@@ -177,6 +183,7 @@ class _Profiler:
             try:
                 self.prof = torch.profiler.profile(activities=act)
                 self.prof.start()
+                self.t0 = time.perf_counter()
             except Exception as e:  # profiling is best-effort
                 self.log(f"[profiler] start failed: {e}")
                 self.prof, self.out_dir = None, None
@@ -189,9 +196,12 @@ class _Profiler:
         prof, self.prof, out_dir, self.out_dir = self.prof, None, \
             self.out_dir, None
         try:
+            t1 = time.perf_counter()
             prof.stop()
             os.makedirs(out_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+            trace.write_chrome_trace(
+                os.path.join(out_dir, "spans.json"), self.t0, t1)
         except Exception as e:
             self.log(f"[profiler] stop failed: {e}")
 

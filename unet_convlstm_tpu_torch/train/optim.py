@@ -16,7 +16,8 @@ unet_convlstm_tpu/train/optim.py, which builds the same chain from optax).
   the ``skip_nonfinite + 1``-th such step in a row, which is applied.
   ``notfinite_count`` counts the bad steps in a row (0 after a finite
   one), ``total_notfinite`` all of them. The decision needs the verdict on
-  the host: one synchronisation per step, only with the skip on.
+  the host: one synchronisation per step, only with the skip on (the
+  ``optim.verdict`` span, ``core/trace.py``).
 * ``ReduceLROnPlateau``: torch's semantics (mode 'min', relative threshold
   1e-4, cooldown 0) on the validation loss, host-side.
 * ZeRO-1 (``zero1`` with a data-parallel ``mesh``): each rank keeps the
@@ -48,6 +49,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..core import trace
 from ..parallel.mesh import MeshRules
 from ..parallel.tensor import model_axis
 
@@ -149,7 +151,9 @@ class Optimizer:
         applied. A trainable parameter without a gradient counts as a zero
         gradient, as in optax (its moments decay, weight decay applies)."""
         if self.skip_nonfinite is not None:
-            if self.grads_finite():
+            with trace.span("optim.verdict"):
+                finite = self.grads_finite()
+            if finite:
                 self.notfinite_count = 0
             else:
                 self.notfinite_count += 1

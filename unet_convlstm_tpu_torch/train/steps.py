@@ -10,7 +10,10 @@ The JAX step is a pure function of a state pytree; here the state lives in
 the model (parameters and BatchNorm buffers) and the optimizer, which the
 step updates in place. It returns (loss, sums) as device tensors and does
 not synchronise with the host, except to decide the non-finite skip when
-that is on.
+that is on. Its spans (``core/trace.py``): ``step``, and inside it
+``step.forward`` (normalize to loss), ``step.backward`` (the backward and
+the gradients' sum over the ranks) and ``step.optim`` (clip and AdamW),
+the last three timed on the card as well.
 
 ``apply_fn(model, x_seq, train=...)`` → (y_seq, state, new_bn_stats), with
 the policy and kernel flags bound (``functools.partial`` of the registry's
@@ -46,6 +49,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..core import trace
 from ..models.registry import bn_buffers, commit_bn_stats
 from ..ops.losses import compute_loss
 from ..ops.normalize import (NormStats, compute_mask, denormalize_y,
@@ -95,23 +99,28 @@ def _make_step_core(apply_fn: Callable, norm_stats: NormStats,
 
     def step(model, opt: Optimizer, x_raw: torch.Tensor,
              y_raw: torch.Tensor) -> Tuple[torch.Tensor, MetricSums]:
-        x = normalize_x(x_raw, norm_stats)
-        y = normalize_y(y_raw, norm_stats)
-        mask = compute_mask(x_raw, norm_stats)
-        opt.zero_grad()
-        y_pred, _, new_bn = apply_fn(model, x, train=True)
-        loss = compute_loss(y_pred, y, mask, use_mask,
-                            grad_weight=grad_weight, mesh=mesh)
-        loss.backward()
-        sum_gradients(opt.grads(), mesh)
-        opt.step()
-        if not guard_nonfinite_stats or _update_was_finite(opt):
-            commit_bn_stats(model, new_bn)
-        sums = _sums(metric_sums_init(x_raw.device), y_pred, y, mask,
-                     use_mask, norm_stats)
-        if mesh is None:
-            return loss.detach(), sums
-        return mesh.all_reduce(loss.detach()), _sum_sums(sums, mesh)
+        dev = x_raw.device
+        with trace.span("step"):
+            with trace.span("step.forward", device=dev):
+                x = normalize_x(x_raw, norm_stats)
+                y = normalize_y(y_raw, norm_stats)
+                mask = compute_mask(x_raw, norm_stats)
+                opt.zero_grad()
+                y_pred, _, new_bn = apply_fn(model, x, train=True)
+                loss = compute_loss(y_pred, y, mask, use_mask,
+                                    grad_weight=grad_weight, mesh=mesh)
+            with trace.span("step.backward", device=dev):
+                loss.backward()
+                sum_gradients(opt.grads(), mesh)
+            with trace.span("step.optim", device=dev):
+                opt.step()
+            if not guard_nonfinite_stats or _update_was_finite(opt):
+                commit_bn_stats(model, new_bn)
+            sums = _sums(metric_sums_init(dev), y_pred, y, mask, use_mask,
+                         norm_stats)
+            if mesh is None:
+                return loss.detach(), sums
+            return mesh.all_reduce(loss.detach()), _sum_sums(sums, mesh)
 
     return step
 
@@ -149,34 +158,40 @@ def _make_accum_step_core(apply_fn: Callable, norm_stats: NormStats,
                 f"microbatch {B // K} (batch {B} / accum_steps={K}) is not "
                 f"divisible by the mesh data degree {D} — each microbatch "
                 f"must shard evenly over 'data' (same rule fit() enforces)")
-        snap = ([t.clone() for t in bn_buffers(model)]
-                if guard_nonfinite_stats else None)
-        opt.zero_grad()
-        loss_sum = torch.zeros((), dtype=torch.float32, device=x_raw.device)
-        sums = metric_sums_init(x_raw.device)
-        for k in range(K):
-            x_r, y_r = x_raw[k::K], y_raw[k::K]
-            x = normalize_x(x_r, norm_stats)
-            y = normalize_y(y_r, norm_stats)
-            mask = compute_mask(x_r, norm_stats)
-            y_pred, _, new_bn = apply_fn(model, x, train=True)
-            loss = compute_loss(y_pred, y, mask, use_mask,
-                                grad_weight=grad_weight, mesh=mesh)
-            loss.backward()           # sums into .grad
-            commit_bn_stats(model, new_bn)
-            loss_sum = loss_sum + loss.detach().float()
-            sums = _sums(sums, y_pred, y, mask, use_mask, norm_stats)
-        grads = opt.grads()
-        if grads:
-            torch._foreach_div_(grads, float(K))
-        sum_gradients(grads, mesh)
-        opt.step()
-        if guard_nonfinite_stats and not _update_was_finite(opt):
-            with torch.no_grad():
-                torch._foreach_copy_(bn_buffers(model), snap)
-        if mesh is None:
-            return loss_sum / K, sums
-        return mesh.all_reduce(loss_sum) / K, _sum_sums(sums, mesh)
+        with trace.span("step"):
+            dev = x_raw.device
+            snap = ([t.clone() for t in bn_buffers(model)]
+                    if guard_nonfinite_stats else None)
+            opt.zero_grad()
+            loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+            sums = metric_sums_init(dev)
+            for k in range(K):
+                with trace.span("step.forward", device=dev):
+                    x_r, y_r = x_raw[k::K], y_raw[k::K]
+                    x = normalize_x(x_r, norm_stats)
+                    y = normalize_y(y_r, norm_stats)
+                    mask = compute_mask(x_r, norm_stats)
+                    y_pred, _, new_bn = apply_fn(model, x, train=True)
+                    loss = compute_loss(y_pred, y, mask, use_mask,
+                                        grad_weight=grad_weight, mesh=mesh)
+                with trace.span("step.backward", device=dev):
+                    loss.backward()           # sums into .grad
+                commit_bn_stats(model, new_bn)
+                loss_sum = loss_sum + loss.detach().float()
+                sums = _sums(sums, y_pred, y, mask, use_mask, norm_stats)
+            with trace.span("step.backward", device=dev):
+                grads = opt.grads()
+                if grads:
+                    torch._foreach_div_(grads, float(K))
+                sum_gradients(grads, mesh)
+            with trace.span("step.optim", device=dev):
+                opt.step()
+            if guard_nonfinite_stats and not _update_was_finite(opt):
+                with torch.no_grad():
+                    torch._foreach_copy_(bn_buffers(model), snap)
+            if mesh is None:
+                return loss_sum / K, sums
+            return mesh.all_reduce(loss_sum) / K, _sum_sums(sums, mesh)
 
     return step
 
