@@ -108,9 +108,7 @@ def _data(batch):
 
 # case: (what runs, its fixture, the span names, the roots in the order
 # they end; None where it follows the prefetch's interleaving)
-CASES = {"predict_many": (_predict_many, "predictor", SERVE,
-                          [SERVE[0], SERVE[0], SERVE[1], SERVE[2],
-                           SERVE[2]]),
+CASES = {"predict_many": (_predict_many, "predictor", SERVE, list(SERVE)),
          "predict": (_predict, "predictor", SERVE, list(SERVE)),
          "step": (_step, "trainer", STEP, ["step"]),
          "accum_step": (lambda tr, b: _step(tr, b, 2), "trainer", STEP,

@@ -4,7 +4,12 @@
   statistics and the normalization manifest, so raw sensor frames go in and
   physical m/s come out), keeps named sessions each carrying the (h, c)
   recurrence on the device, and runs one forward step per request. A
-  frame costs the same however long its session has run.
+  frame costs the same however long its session has run. The sessions of
+  one (B, H, W) hold slots (row ranges) of one batched state, so that
+  ``predict_many`` over all of them in the order of their slots hands the
+  step that batch as it lies, and a call over all of them in another order
+  leaves their slots in its order; frames and outputs go through host
+  buffers reused from request to request, page-locked on a card.
 * ``serve_http`` / CLI ``serve`` — a stdlib HTTP front end: JSON for
   control, raw little-endian float32 tensors for data.
 
@@ -25,9 +30,11 @@ gate update and the fused 3x3 conv; the ResNet18 family's decoder does not
 fuse, as in the JAX package), under ``torch.inference_mode()``.
 Device work is serialized with a lock (one card, many HTTP threads).
 A request's spans (``core/trace.py``): ``serve.stage_in`` (the frame
-blocks' concatenation, the sessions' states concatenated, the host→card
-copy), ``serve.forward`` (the step's dispatch) and ``serve.stage_out`` (the
-card→host copy, the states' split).
+blocks written into the host buffer and copied on to the card, the
+sessions' rows of the state gathered where they are not the whole group),
+``serve.forward`` (the step's dispatch) and ``serve.stage_out`` (the
+card→host copy, the new state written back, one array a session).
+``state_counts()`` counts the requests of each state path.
 
 ``int8=True`` serves the post-training int8 model (``ops/quant.py``): every
 conv int8 on the card's int8 kernel (K8) with dynamic activation scales, or
@@ -40,9 +47,9 @@ flag.
 from __future__ import annotations
 
 import json
+import math
 import threading
 import uuid
-from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -56,14 +63,43 @@ from .ops.quant import calibrate_tree, quantize_model
 from .train.checkpoint import restore_checkpoint
 
 
-@dataclass
+class _Group:
+    """The ConvLSTM states of one (B, H, W) geometry's sessions as one
+    batch: slot i owns rows [i·B, (i + 1)·B) of every tensor of ``state``
+    (the model's state tree: h in the compute dtype, c in f32). An open
+    takes a freed slot, and grows the group only when none is free; a
+    request over all of its live sessions leaves it holding just their
+    rows, in the request's order; the last close releases it. Read and
+    written under the predictor's device lock."""
+
+    def __init__(self, batch: int):
+        self.batch = batch
+        self.state = None
+        self.slots = 0
+        self.free: List[int] = []
+
+    def rows(self, slot: int) -> slice:
+        return slice(slot * self.batch, (slot + 1) * self.batch)
+
+    def live(self) -> int:
+        return self.slots - len(self.free)
+
+
 class _Session:
-    batch: int
-    height: int
-    width: int
-    state: Any = None
-    frames_seen: int = 0
-    lock: threading.Lock = field(default_factory=threading.Lock)
+    """A stream: its geometry, its slot in that geometry's group, the
+    frames it has seen, and the lock that orders its requests."""
+
+    def __init__(self, group: _Group, slot: int, height: int, width: int):
+        self.group, self.slot = group, slot
+        self.batch, self.height, self.width = group.batch, height, width
+        self.frames_seen = 0
+        self.lock = threading.Lock()
+
+    @property
+    def state(self):
+        """The session's (h, c) tree: views of its slot's rows."""
+        rows = self.group.rows(self.slot)
+        return _map_state(lambda a: a[rows], self.group.state)
 
 
 def _map_state(fn: Callable, *states):
@@ -71,6 +107,17 @@ def _map_state(fn: Callable, *states):
     return {k: [tuple(fn(*leaves) for leaves in zip(*carries))
                 for carries in zip(*(s[k] for s in states))]
             for k in states[0]}
+
+
+# requests whose sessions' states went to the step as their group holds
+# them ("resident"), and those that read and wrote back their rows of it
+# ("gathered"); over the process, as ops.kernels counts its launches
+_STATE_PATHS = {"resident": 0, "gathered": 0}
+
+
+def state_counts() -> Dict[str, int]:
+    """How many requests the resident and the gathered path have served."""
+    return dict(_STATE_PATHS)
 
 
 class StreamingPredictor:
@@ -103,15 +150,24 @@ class StreamingPredictor:
                 # materialized before anything takes its length: a
                 # generator is consumed once
                 frames = list(int8_calib_frames)
-                batches = [normalize_x(self._to_device(b), self.norm_stats)
-                           for b in frames]
+                batches = [normalize_x(torch.tensor(
+                    np.asarray(b, np.float32), device=self.device),
+                    self.norm_stats) for b in frames]
                 self.model = calibrate_tree(
                     self._apply_fn, self.model, batches, policy=self.policy,
                     use_pallas=True, use_fused_doubleconv=True)
                 self.int8_calib_blocks = len(frames)
         self._sessions: Dict[str, _Session] = {}
+        self._groups: Dict[Tuple[int, int, int], _Group] = {}
         self._sessions_lock = threading.Lock()
         self._device_lock = threading.Lock()
+        # the staging buffers ("frames" and "outputs" on the host, "frames"
+        # on the device), reused from request to request and touched only
+        # under the device lock: the host ones page-locked where the device
+        # is a card
+        self._pin = self.device.type == "cuda"
+        self._buffers: Dict[Tuple[str, bool], torch.Tensor] = {}
+        self._out_copied = torch.cuda.Event() if self._pin else None
 
     @torch.inference_mode()
     def _step(self, x_raw: torch.Tensor, state):
@@ -121,10 +177,96 @@ class StreamingPredictor:
             use_pallas=True, use_fused_doubleconv=True)
         return denormalize_y(y.float(), self.norm_stats), new_state
 
-    def _to_device(self, frames) -> torch.Tensor:
-        # a writable copy only where needed (HTTP bodies are read-only)
-        return torch.from_numpy(np.require(frames, np.float32, ["C", "W"])
-                                ).to(self.device)
+    # -- staging --------------------------------------------------------------
+
+    def _buffer(self, kind: str, shape: tuple,
+                on_device: bool = False) -> torch.Tensor:
+        """The reused f32 buffer of a kind, on the host or the device,
+        viewed as ``shape``: one a kind and side, replaced only by a larger
+        one when a request needs more than it holds."""
+        n, key = math.prod(shape), (kind, on_device)
+        buf = self._buffers.get(key)
+        if buf is None or buf.numel() < n:
+            buf = self._buffers[key] = (
+                torch.empty(n, dtype=torch.float32, device=self.device)
+                if on_device else
+                torch.empty(n, dtype=torch.float32, pin_memory=self._pin))
+        return buf[:n].view(shape)
+
+    def _stage_in(self, blocks, shape: tuple) -> torch.Tensor:
+        """The frame blocks, one after another, into their rows of the
+        host buffer, each block's rows copied on to the device buffer as
+        soon as they are written; returns the device buffer.
+
+        Under the device lock: a request keeps it until its card→host
+        copy, which its stream runs after its host→card copies, has
+        finished, so no copy still reads the host buffer when the next
+        request writes it. (One that raised in between leaves at most a
+        copy that the next request's copy, later on the same stream,
+        overwrites.)"""
+        host = self._buffer("frames", shape)
+        host_np = host.numpy()
+        dev = self._buffer("frames", shape, on_device=True)
+        b = shape[0] // len(blocks)
+        for i, f in enumerate(blocks):
+            rows = slice(i * b, (i + 1) * b)
+            np.copyto(host_np[rows], f, casting="unsafe")
+            dev[rows].copy_(host[rows], non_blocking=True)
+        return dev
+
+    def _index(self, slots: List[int], batch: int) -> torch.Tensor:
+        """The group rows of ``slots``, in order, on the device."""
+        idx = torch.tensor([r for s in slots
+                            for r in range(s * batch, (s + 1) * batch)])
+        if self._pin:
+            idx = idx.pin_memory()
+        return idx.to(self.device, non_blocking=True)
+
+    def _serve(self, sess: List[_Session], blocks, shape) -> List[np.ndarray]:
+        """One step for sessions of one group (their locks held), their
+        frame blocks of one shape; a freshly allocated output array each.
+
+        Where the sessions' slots are all of the group's, in order, the
+        group's state goes to the step as it lies (the resident path);
+        otherwise one gather a tensor reads their rows (the gathered path).
+        Where the sessions are all of the group's live ones, the new state
+        becomes the group's, their slots renumbered in the call's order, so
+        that the next call in that order is resident; otherwise one
+        scatter a tensor writes their rows back."""
+        g, n = sess[0].group, len(sess)
+        with self._device_lock, torch.inference_mode():
+            slots = [s.slot for s in sess]
+            with trace.span("serve.stage_in"):
+                x = self._stage_in(blocks, (n * g.batch,) + tuple(shape[1:]))
+                resident = slots == list(range(g.slots))
+                if resident:
+                    state = g.state
+                else:
+                    rows = self._index(slots, g.batch)
+                    state = _map_state(lambda a: a.index_select(0, rows),
+                                       g.state)
+            with trace.span("serve.forward"):
+                y, new_state = self._step(x, state)
+            with trace.span("serve.stage_out"):
+                host = self._buffer("outputs", tuple(y.shape))
+                host.copy_(y, non_blocking=True)
+                if self._pin:
+                    self._out_copied.record(
+                        torch.cuda.current_stream(self.device))
+                # the state's write-back runs on the card while the host
+                # waits for the outputs
+                if n == g.live():
+                    g.state, g.slots, g.free = new_state, n, []
+                    for i, s in enumerate(sess):
+                        s.slot = i
+                else:
+                    _map_state(lambda a, b: a.index_copy_(0, rows, b),
+                               g.state, new_state)
+                _STATE_PATHS["resident" if resident else "gathered"] += 1
+                if self._pin:
+                    self._out_copied.synchronize()
+                host_np, b = host.numpy(), y.shape[0] // n
+                return [host_np[i * b:(i + 1) * b].copy() for i in range(n)]
 
     # -- session management -------------------------------------------------
 
@@ -135,19 +277,38 @@ class StreamingPredictor:
 
     def open_session(self, batch: int, height: int, width: int) -> str:
         sid = uuid.uuid4().hex[:16]
-        # zero carry in the dtypes the step returns: h in the compute dtype,
-        # c in f32
-        state = self._init_state(batch, height, width, device=self.device)
-        state = {k: [(h.to(self.policy.compute_dtype),
-                      c.to(self.policy.accum_dtype)) for h, c in v]
-                 for k, v in state.items()}
+        with self._device_lock, torch.inference_mode():
+            g = self._groups.setdefault((batch, height, width), _Group(batch))
+            if g.free:
+                slot = g.free.pop()
+                _map_state(lambda a: a[g.rows(slot)].zero_(), g.state)
+            else:
+                slot, g.slots = g.slots, g.slots + 1
+                # zero carry in the dtypes the step returns: h in the
+                # compute dtype, c in f32
+                zero = {k: [(h.to(self.policy.compute_dtype),
+                             c.to(self.policy.accum_dtype)) for h, c in v]
+                        for k, v in self._init_state(
+                            batch, height, width, device=self.device).items()}
+                g.state = zero if g.state is None else _map_state(
+                    lambda a, z: torch.cat([a, z]), g.state, zero)
         with self._sessions_lock:
-            self._sessions[sid] = _Session(batch, height, width, state=state)
+            self._sessions[sid] = _Session(g, slot, height, width)
         return sid
 
     def close_session(self, sid: str) -> bool:
         with self._sessions_lock:
-            return self._sessions.pop(sid, None) is not None
+            s = self._sessions.pop(sid, None)
+        if s is None:
+            return False
+        # after the session's request in flight, if any, has written its
+        # rows: the next open may take the slot
+        with s.lock, self._device_lock:
+            g = s.group
+            g.free.append(s.slot)
+            if not g.live():            # the last: its state is released
+                g.state, g.slots, g.free = None, 0, []
+        return True
 
     def session_info(self, sid: str) -> Optional[Dict[str, Any]]:
         s = self._sessions.get(sid)
@@ -179,28 +340,26 @@ class StreamingPredictor:
         s = self._sessions.get(sid)
         if s is None:
             raise KeyError(f"unknown session {sid!r}")
-        self._check_frames(np.shape(frames), s.batch, s.height, s.width)
+        shape = np.shape(frames)
+        self._check_frames(shape, s.batch, s.height, s.width)
         with s.lock:                    # per-session state consistency
             # a concurrent DELETE may have closed the session meanwhile
             with self._sessions_lock:
                 if self._sessions.get(sid) is not s:
                     raise KeyError(f"unknown session {sid!r}")
-            with self._device_lock:     # one card, many threads
-                with trace.span("serve.stage_in"):
-                    x = self._to_device(frames)
-                with trace.span("serve.forward"):
-                    y, new_state = self._step(x, s.state)
-                with trace.span("serve.stage_out"):
-                    y_host = y.cpu().numpy()
-            s.state = new_state
-            s.frames_seen += frames.shape[1]
-        return y_host
+            [y] = self._serve([s], [frames], shape)
+            s.frames_seen += shape[1]
+        return y
 
     def predict_many(self, sids: List[str], frames_list) -> List[np.ndarray]:
         """One batched step for N same-geometry sessions.
 
         Each session's recurrent state advances exactly as if its block had
-        gone through ``predict``, but the card sees one [N·B] batch."""
+        gone through ``predict``, but the card sees one [N·B] batch. It
+        goes to the step as the geometry's group holds it where ``sids``
+        are all of the group's sessions in the order of their slots: in the
+        order they were opened, or that of the last call over all of
+        them."""
         if not sids:
             raise ValueError("predict_many needs at least one session")
         if len(set(sids)) != len(sids):
@@ -224,7 +383,6 @@ class StreamingPredictor:
             raise ValueError(f"sessions differ in geometry: {geoms}")
         (shape,), (geom,) = shapes, geoms
         self._check_frames(shape, *geom)
-        B, T = shape[0], shape[1]
 
         # every session lock in sid-sorted order, so that two overlapping
         # predict_many calls cannot deadlock
@@ -237,28 +395,10 @@ class StreamingPredictor:
                 with self._sessions_lock:
                     if self._sessions.get(sids[i]) is not sess[i]:
                         raise KeyError(f"unknown session {sids[i]!r}")
-            # staging in and out are two spans each, either side of the
-            # device lock
-            with trace.span("serve.stage_in"):
-                x_all = np.concatenate([np.asarray(f, np.float32)
-                                        for f in frames_list], axis=0)
-            with self._device_lock:
-                with trace.span("serve.stage_in"):
-                    state = _map_state(lambda *a: torch.cat(a, dim=0),
-                                       *(s.state for s in sess))
-                    x = self._to_device(x_all)
-                with trace.span("serve.forward"):
-                    y, new_state = self._step(x, state)
-                    del x           # back to the pool before the split
-                with trace.span("serve.stage_out"):
-                    y_host = y.cpu().numpy()
-            with trace.span("serve.stage_out"):
-                for i, s in enumerate(sess):
-                    s.state = _map_state(
-                        lambda a, i=i: a[i * B:(i + 1) * B].clone(),
-                        new_state)
-                    s.frames_seen += T
-            return [y_host[i * B:(i + 1) * B] for i in range(len(sess))]
+            ys = self._serve(sess, frames_list, shape)
+            for s in sess:
+                s.frames_seen += shape[1]
+            return ys
         finally:
             for s in held:
                 s.lock.release()
