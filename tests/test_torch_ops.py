@@ -10,7 +10,7 @@ from unet_convlstm_tpu.core.dtypes import FP32_POLICY as JFP32
 from unet_convlstm_tpu.models import layout as jlayout
 from unet_convlstm_tpu.ops import conv as jconv
 from unet_convlstm_tpu.ops import normalize as jnorm
-from unet_convlstm_tpu_torch.core.dtypes import FP32_POLICY
+from unet_convlstm_tpu_torch.core.dtypes import FP32_POLICY, Policy
 from unet_convlstm_tpu_torch.models import layout as tlayout
 from unet_convlstm_tpu_torch.ops import conv as tconv
 from unet_convlstm_tpu_torch.ops import normalize as tnorm
@@ -105,6 +105,164 @@ def test_batchnorm_from_sums(train):
     for a, b in ((it, ij), (ht, hj), (mean, sj["mean"]), (var, sj["var"])):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
 
+
+
+class _CountOps(torch.utils._python_dispatch.TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def _fresh_affine(bn, dtype):
+    inv = torch.rsqrt(bn.running_var + 1e-5) * bn.weight
+    return inv.to(dtype), (bn.bias - bn.running_mean * inv).to(dtype)
+
+
+def _change_in_place(bn):
+    with torch.no_grad():
+        bn.running_var.mul_(2.0)
+
+
+def _change_by_state_dict(bn):
+    sd = {k: v.clone() for k, v in bn.state_dict().items()}
+    sd["weight"] = sd["weight"] * 3.0
+    bn.load_state_dict(sd)
+
+
+def _change_by_data(bn):
+    bn.bias.data = bn.bias.data + 1.0
+
+
+def _change_by_new_buffer(bn):
+    bn.running_mean = bn.running_mean - 0.5
+
+
+@pytest.mark.parametrize("change", [_change_in_place, _change_by_state_dict,
+                                    _change_by_data, _change_by_new_buffer],
+                         ids=["in_place", "load_state_dict", "data",
+                              "new_buffer"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eval_affine_kept_until_the_weights_change(change, dtype):
+    """With gradients off, eval-mode BatchNorm's (inv, shift) are computed
+    once and reused; any change to the weights or running statistics
+    computes them afresh, bit-equal to the formula."""
+    rng = np.random.default_rng(5)
+    bn, _, _ = _bn_pair(rng, 6)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 4, 6)).astype(
+        np.float32)).to(dtype)
+    with torch.no_grad():
+        first = tconv.eval_affine(bn, dtype)
+        assert tconv.eval_affine(bn, dtype) is first
+        y_kept, _ = tconv.batchnorm(bn, x, False)
+        change(bn)
+        again = tconv.eval_affine(bn, dtype)
+        assert again is not first
+        for a, b in zip(again, _fresh_affine(bn, dtype)):
+            assert torch.equal(a, b)
+        y_new, _ = tconv.batchnorm(bn, x, False)
+    inv, shift = _fresh_affine(bn, dtype)
+    assert torch.equal(y_new, x * inv + shift)
+    assert not torch.equal(y_new, y_kept)
+
+
+@pytest.mark.parametrize("inference", [False, True])
+def test_eval_batchnorm_launches_two_ops_once_kept(inference):
+    """A kept affine leaves the normalization's multiply and add: two ops
+    where the affine's recomputation and casts took nine."""
+    rng = np.random.default_rng(6)
+    bn, _, _ = _bn_pair(rng, 6)
+    x = torch.randn(2, 3, 4, 6, dtype=torch.bfloat16)
+    with (torch.inference_mode() if inference else torch.no_grad()):
+        tconv.batchnorm(bn, x, False)
+        with _CountOps() as counted:
+            tconv.batchnorm(bn, x, False)
+    assert counted.ops == ["mul.Tensor", "add.Tensor"]
+
+
+def test_eval_affine_with_gradients_reaches_the_weights():
+    """With gradients on, the affine is computed each call, so the
+    weights take their gradient."""
+    rng = np.random.default_rng(7)
+    bn, _, _ = _bn_pair(rng, 6)
+    x = torch.randn(2, 3, 4, 6)
+    assert tconv.eval_affine(bn, x.dtype) is not tconv.eval_affine(
+        bn, x.dtype)
+    y, _ = tconv.batchnorm(bn, x, False)
+    y.sum().backward()
+    assert bn.weight.grad is not None and bn.weight.grad.abs().sum() > 0
+    assert bn.bias.grad is not None
+
+
+def _change_twice(bn):
+    # the first replacement is freed by the second, whose tensor may take
+    # its address at the same version
+    bn.running_mean = bn.running_mean - 0.5
+    bn.running_mean = bn.running_mean - 0.5
+
+
+def test_eval_affine_after_two_new_buffers():
+    rng = np.random.default_rng(8)
+    bn, _, _ = _bn_pair(rng, 6)
+    with torch.no_grad():
+        tconv.eval_affine(bn, torch.float32)
+        _change_twice(bn)
+        got = tconv.eval_affine(bn, torch.float32)
+    for a, b in zip(got, _fresh_affine(bn, torch.float32)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cast_param_kept_until_the_weight_changes(dtype):
+    """With gradients off a parameter's cast is made once; an in-place
+    update (an optimizer step) or a new ``.data`` makes it afresh."""
+    policy = Policy(compute_dtype=dtype)
+    conv = tconv.Conv2d(3, 4, 3, generator=torch.Generator().manual_seed(0))
+    opt = torch.optim.SGD(conv.parameters(), lr=0.5)
+    with torch.no_grad():
+        first = policy.cast_param(conv.weight)
+        assert policy.cast_param(conv.weight) is first
+        assert torch.equal(first, conv.weight.to(dtype))
+    x = torch.randn(2, 5, 5, 3)
+    tconv.conv2d(x, conv, policy=FP32_POLICY).sum().backward()
+    opt.step()
+    with torch.no_grad():
+        stepped = policy.cast_param(conv.weight)
+        assert stepped is not first
+        assert torch.equal(stepped, conv.weight.to(dtype))
+        conv.weight.data = conv.weight.data * 2.0
+        assert torch.equal(policy.cast_param(conv.weight),
+                           conv.weight.to(dtype))
+        assert policy.cast_param(conv.bias) is policy.cast_param(conv.bias)
+
+
+def test_cast_param_with_gradients_is_made_each_call():
+    conv = tconv.Conv2d(3, 4, 3, generator=torch.Generator().manual_seed(1))
+    policy = Policy(compute_dtype=torch.bfloat16)
+    a, b = policy.cast_param(conv.weight), policy.cast_param(conv.weight)
+    assert a is not b and a.grad_fn is not None
+    (a.float().sum() + b.float().sum()).backward()
+    assert torch.equal(conv.weight.grad, torch.full_like(conv.weight, 2.0))
+
+
+def test_kept_holds_nothing_alive():
+    """A kept value keeps neither its owner nor its tensors alive."""
+    import gc
+    import weakref
+
+    conv = tconv.Conv2d(3, 4, 3, generator=torch.Generator().manual_seed(2))
+    bn = torch.nn.BatchNorm2d(4).eval()
+    with torch.no_grad():
+        Policy().cast_param(conv.weight)
+        tconv.eval_affine(bn, torch.bfloat16)
+    refs = [weakref.ref(conv.weight), weakref.ref(bn),
+            weakref.ref(bn.running_var)]
+    del conv, bn
+    gc.collect()
+    assert all(r() is None for r in refs)
 
 def test_time_major_flatten():
     x = np.arange(2 * 3 * 2 * 2 * 1, dtype=np.float32).reshape(2, 3, 2, 2, 1)

@@ -11,6 +11,7 @@ import os
 import sys
 import threading
 import time
+import warnings
 
 import jax
 import numpy as np
@@ -22,6 +23,7 @@ from unet_convlstm_tpu.models.temporal_unet import (
 from unet_convlstm_tpu.serve import StreamingPredictor as JPredictor
 from unet_convlstm_tpu.train.checkpoint import save_checkpoint as j_save
 from unet_convlstm_tpu_torch.cli import build_parser
+from unet_convlstm_tpu_torch.models.registry import build_model
 from unet_convlstm_tpu_torch.ops.normalize import compute_norm_stats
 from unet_convlstm_tpu_torch.ops.quant import QuantConv2d
 from unet_convlstm_tpu_torch import serve
@@ -263,8 +265,12 @@ def test_state_groups_match_per_session_states(checkpoints, case):
     reference fuses the same rows: a fused batch of three or more rows and
     a lone row take other algorithms in the CPU's bf16 convs and round a
     few outputs otherwise (1-2 bf16 ulps), whatever holds the states."""
+    _check_state_script(checkpoints[1], case)
+
+
+def _check_state_script(checkpoint: str, case: str):
     script, counts = STATE_CASES[case]
-    pred = StreamingPredictor(checkpoints[1], device="cpu")
+    pred = StreamingPredictor(checkpoint, device="cpu")
     rng = np.random.default_rng(sorted(STATE_CASES).index(case))
     sid, ref, seen = {}, {}, {}
     before = serve.state_counts()
@@ -295,6 +301,76 @@ def test_state_groups_match_per_session_states(checkpoints, case):
     assert {k: after[k] - before[k] for k in after} == counts
     for j, s in sid.items():
         assert pred.session_info(s)["frames_seen"] == seen[j]
+
+
+# the ResNet18 family's state tree: ten ConvLSTM layers at five scales,
+# twenty tensors against the custom model's six
+RESNET = {"type": "resnet18", "freeze_encoder": True, "lstm_layers": 2,
+          "in_channels": 2, "out_channels": 1}
+
+
+@pytest.fixture(scope="module")
+def resnet_checkpoint(tmp_path_factory, frames):
+    _, init, _, _ = build_model(dict(RESNET, pretrained_resolved=True))
+    weights = init(torch.Generator().manual_seed(3)).state_dict()
+    rng = np.random.default_rng(2)
+    y = (rng.standard_normal((B, T, H, W, 1)) * 4).astype(np.float32)
+    return save_checkpoint(
+        str(tmp_path_factory.mktemp("torch_serve_resnet") / "model.pt"),
+        weights, RESNET, compute_norm_stats(frames, y).to_dict())
+
+
+@pytest.mark.parametrize("case", sorted(STATE_CASES))
+def test_resnet_state_groups_match_per_session_states(resnet_checkpoint,
+                                                      case):
+    """The same scripts on the ResNet18 family's twenty-tensor state tree:
+    the resident path, the gather, the scatter and a reopen into a freed
+    slot each give every stream the outputs of its own state."""
+    _check_state_script(resnet_checkpoint, case)
+
+
+def test_resnet_checkpoint_serves_as_saved(resnet_checkpoint, monkeypatch):
+    """A served ResNet18 checkpoint holds every weight: the predictor
+    looks for no ImageNet .pth, warns of no fallback and keeps the saved
+    freeze_encoder (a config without ``pretrained_resolved``, as the
+    benchmark and library users save it)."""
+    from unet_convlstm_tpu_torch.models import registry
+
+    def no_search(*a, **k):
+        raise AssertionError("searched for a .pth")
+
+    monkeypatch.setattr(registry, "find_resnet18_weights", no_search)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        pred = StreamingPredictor(resnet_checkpoint, device="cpu")
+    assert pred.cfg.freeze_encoder is True
+    assert pred.model_cfg == RESNET
+    state = pred._init_state(1, H, W)
+    assert len(state) == 5 and sum(len(v) for v in state.values()) == 10
+
+
+def test_resnet_reopen_zeroes_its_slot_in_place(resnet_checkpoint,
+                                                frames):
+    """A session opened into a freed slot finds every one of its twenty
+    state tensors zero, written in the group's own tensors (no new
+    allocation), while the other slot's rows keep their state."""
+    pred = StreamingPredictor(resnet_checkpoint, device="cpu")
+    sids = [pred.open_session(1, H, W) for _ in range(2)]
+    pred.predict_many(sids, [frames[:1, :1], frames[1:2, :1]])
+    group = pred._sessions[sids[0]].group
+    leaves = lambda: [t for v in group.state.values()  # noqa: E731
+                      for carry in v for t in carry]
+    kept = [t[0:1].clone() for t in leaves()]
+    ptrs = [t.data_ptr() for t in leaves()]
+    assert all(t[1:2].any() for t in leaves())
+    assert pred.close_session(sids[1])
+    again = pred.open_session(1, H, W)
+    assert pred._sessions[again].slot == 1 and group.slots == 2
+    assert [t.data_ptr() for t in leaves()] == ptrs
+    assert len(ptrs) == 20
+    for t, k in zip(leaves(), kept):
+        assert not t[1:2].any()
+        torch.testing.assert_close(t[0:1], k, rtol=0, atol=0)
 
 
 def test_returned_arrays_outlive_the_reused_buffers(checkpoints):

@@ -1,8 +1,9 @@
 """The port's span recorder (``core/trace.py``) and the spans at its layer
 boundaries: off by default, on under a torch profiler or after
-``enable()``, every span of the data path, the training step and the
-serving engine recorded with its parent and its root, stamped on
-``time.perf_counter``, never a profiler event, and a bounded buffer.
+``enable()``, every span of the data path, the training step, the
+serving engine and the model recorded with its parent and its root,
+stamped on ``time.perf_counter``, never a profiler event, and a bounded
+buffer.
 
 base_ch 4, B=2, T=2, 16x16 on the CPU; no JAX."""
 
@@ -28,12 +29,17 @@ from unet_convlstm_tpu_torch.train.steps import make_train_step
 MODEL = {"type": "custom", "base_ch": 4, "use_skip_lstm": True,
          "lstm_layers": 1}
 B, T, HW = 2, 2, 16
-SERVE = ("serve.stage_in", "serve.forward", "serve.stage_out")
+MODEL_SPANS = ("model.encoder", "model.recurrence", "model.decoder")
+SERVE = ("serve.stage_in", "serve.forward", "serve.stage_out") + MODEL_SPANS
 STEP = ("step", "step.forward", "step.backward", "step.optim",
-        "optim.verdict")
+        "optim.verdict") + MODEL_SPANS
 DATA = ("data.gather", "data.stage")
 PARENTS = {"step.forward": "step", "step.backward": "step",
            "step.optim": "step", "optim.verdict": "step.optim"}
+# the model's spans nest in the forward that calls it; the root of a
+# nested span is a step's, or the request's forward
+FORWARD = {SERVE: "serve.forward", STEP: "step.forward"}
+NESTED_ROOT = {SERVE: "serve.forward", STEP: "step"}
 
 
 @pytest.fixture(scope="module")
@@ -108,8 +114,9 @@ def _data(batch):
 
 # case: (what runs, its fixture, the span names, the roots in the order
 # they end; None where it follows the prefetch's interleaving)
-CASES = {"predict_many": (_predict_many, "predictor", SERVE, list(SERVE)),
-         "predict": (_predict, "predictor", SERVE, list(SERVE)),
+CASES = {"predict_many": (_predict_many, "predictor", SERVE,
+                          list(SERVE[:3])),
+         "predict": (_predict, "predictor", SERVE, list(SERVE[:3])),
          "step": (_step, "trainer", STEP, ["step"]),
          "accum_step": (lambda tr, b: _step(tr, b, 2), "trainer", STEP,
                         ["step"]),
@@ -161,13 +168,14 @@ def test_every_span_with_its_parent_and_root(case, request, batch, fresh):
     by_id = {s.id: s for s in got}
     for s in got:
         assert b <= s.start <= s.end <= c          # perf_counter, inside
-        want = PARENTS.get(s.name)
+        want = (FORWARD[names] if s.name in MODEL_SPANS
+                else PARENTS.get(s.name))
         if want is None:
             assert s.parent is None and s.root == s.id
         else:
             assert by_id[s.parent].name == want
             root = by_id[s.root]
-            assert root.name == names[0] and root.parent is None
+            assert root.name == NESTED_ROOT[names] and root.parent is None
     roots = CASES[case][3]
     if roots is not None:
         assert [s.name for s in got if s.parent is None] == roots

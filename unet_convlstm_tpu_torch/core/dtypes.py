@@ -14,10 +14,14 @@ import dataclasses
 
 import torch
 
+from .kept import kept
+
 
 @dataclasses.dataclass(frozen=True)
 class Policy:
-    """Parameters stay f32 and are cast per call to ``compute_dtype``."""
+    """Parameters stay f32 and are cast per call to ``compute_dtype``;
+    with gradients off a parameter's cast is made once per set of weights
+    (``core/kept.py``)."""
     compute_dtype: torch.dtype = torch.bfloat16
     accum_dtype: torch.dtype = torch.float32
 
@@ -26,9 +30,12 @@ class Policy:
 
     def cast_param(self, p: torch.Tensor) -> torch.Tensor:
         # integer leaves (int8 kernels) keep their dtype, as in the JAX policy
-        if not p.is_floating_point():
+        if not p.is_floating_point() or p.dtype == self.compute_dtype:
             return p
-        return p.to(self.compute_dtype)
+        if not isinstance(p, torch.nn.Parameter):
+            return p.to(self.compute_dtype)
+        return kept(p, self.compute_dtype, (p,),
+                    lambda: p.to(self.compute_dtype))
 
     @contextlib.contextmanager
     def precision(self):

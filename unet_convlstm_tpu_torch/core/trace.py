@@ -1,6 +1,6 @@
 """The program's spans: host intervals at its layer boundaries (the data
-path, the training step, the serving engine), kept in memory for a reader
-in the same process.
+path, the training step, the serving engine, the model's encoder,
+recurrence and decoder), kept in memory for a reader in the same process.
 
 ``span(name, device=None, **attrs)`` is a context manager. Recording is
 on while a torch profiler runs (``torch.profiler.profile``, as the

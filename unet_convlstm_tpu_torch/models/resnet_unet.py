@@ -36,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..core import trace
 from ..core.dtypes import DEFAULT_POLICY, Policy
 from ..ops.blocks import double_conv
 from ..ops.conv import Conv2d, batchnorm, conv2d, max_pool2d
@@ -285,7 +286,10 @@ def resnet_unet_apply(m: PretrainedTemporalUNet, x_seq: torch.Tensor,
     gradients and keeps nothing to recompute). ``unroll``: accepted, no
     effect (XLA's scan unroll). ``mesh``: train-mode BatchNorm over the
     data-parallel global batch, and the model's tensor-parallel shards
-    column-parallel over its model group."""
+    column-parallel over its model group. The encoder, the ConvLSTM
+    stacks and the decoder with its head run inside the spans
+    ``model.encoder``, ``model.recurrence`` and ``model.decoder``
+    (``core/trace.py``), with device events on a card."""
     del unroll            # no counterpart in eager PyTorch (ROADMAP.md §C)
     cfg = m.cfg
     B, T = x_seq.shape[0], x_seq.shape[1]
@@ -293,7 +297,9 @@ def resnet_unet_apply(m: PretrainedTemporalUNet, x_seq: torch.Tensor,
     x_bt = flatten_seq(x_seq, lay)
 
     frozen = cfg.freeze_encoder and not cfg.encoder_bn_train
-    with torch.no_grad() if frozen else contextlib.nullcontext():
+    dev = x_seq.device
+    with trace.span("model.encoder", device=dev), \
+            torch.no_grad() if frozen else contextlib.nullcontext():
         # frozen: inference-mode BN, whose "new" stats are the running ones
         feats, enc_stats = remat_call(
             remat and not frozen, resnet18_encoder_apply, m.encoder, x_bt,
@@ -304,13 +310,16 @@ def resnet_unet_apply(m: PretrainedTemporalUNet, x_seq: torch.Tensor,
     recurrences = [("temporal", m.lstm, len(feats) - 1)] + [
         (f"skip{i}", m.lstm_skips[str(i + 1)], i)
         for i in range(len(ENCODER_CHANNELS) - 1)]
-    for key, lstm, i in recurrences:
-        out, new_state[key] = convlstm(
-            lstm, to_time_major(feats[i], B, T, lay), state=state.get(key),
-            policy=policy, use_pallas=use_pallas, mesh=mesh)
-        feats[i] = to_batch_major(out, B, T, lay).to(x_bt.dtype)
+    with trace.span("model.recurrence", device=dev):
+        for key, lstm, i in recurrences:
+            out, new_state[key] = convlstm(
+                lstm, to_time_major(feats[i], B, T, lay),
+                state=state.get(key), policy=policy, use_pallas=use_pallas,
+                mesh=mesh)
+            feats[i] = to_batch_major(out, B, T, lay).to(x_bt.dtype)
 
-    y_bt, dec_stats = decoder_apply(m.decoder, m.segmentation_head[0],
-                                    feats, train, policy, mesh)
-    return (unflatten_seq(y_bt, B, T, lay), new_state,
-            {"encoder": enc_stats, "decoder": dec_stats})
+    with trace.span("model.decoder", device=dev):
+        y_bt, dec_stats = decoder_apply(m.decoder, m.segmentation_head[0],
+                                        feats, train, policy, mesh)
+        y_seq = unflatten_seq(y_bt, B, T, lay)
+    return y_seq, new_state, {"encoder": enc_stats, "decoder": dec_stats}

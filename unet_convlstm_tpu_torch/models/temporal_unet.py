@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..core import trace
 from ..core.dtypes import DEFAULT_POLICY, Policy
 from ..ops.blocks import (DoubleConv, Down, OutConv, SpatialAttention, Up,
                           double_conv, down, out_conv, spatial_attention, up)
@@ -165,41 +166,46 @@ def temporal_unet_apply(m: TemporalUNetDualView, x_seq: torch.Tensor,
     rows of a data-parallel batch, and train-mode BatchNorm takes the
     global batch's statistics; the model's tensor-parallel shards
     (``parallel.tensor.shard_model``) run column-parallel over the mesh's
-    model group."""
+    model group. The encoder, the ConvLSTMs and the decoder with its
+    head run inside the spans ``model.encoder``, ``model.recurrence`` and
+    ``model.decoder`` (``core/trace.py``), with device events on a card."""
     del unroll            # no counterpart in eager PyTorch (ROADMAP.md §C)
     cfg = m.cfg
     B, T = x_seq.shape[0], x_seq.shape[1]
     fused = use_fused_doubleconv
     lay = flat_layout
+    dev = x_seq.device
 
     x_bt = flatten_seq(x_seq, lay)
-    xb, skips, enc_stats = remat_call(remat, _encode, m, x_bt, train,
-                                        policy, fused, mesh)
+    with trace.span("model.encoder", device=dev):
+        xb, skips, enc_stats = remat_call(remat, _encode, m, x_bt, train,
+                                          policy, fused, mesh)
 
     state = state or {}
-    xb_out_tm, new_temporal = convlstm(
-        m.temporal, to_time_major(xb, B, T, lay),
-        state=state.get("temporal"), policy=policy, use_pallas=use_pallas,
-        mesh=mesh)
-    new_state: Dict[str, Any] = {"temporal": new_temporal}
-
     x3, x2, x1, x0 = skips
-    if cfg.use_skip_lstm:
-        x3_out, new_state["skip3"] = convlstm(
-            m.lstm_skip3, to_time_major(x3, B, T, lay),
-            state=state.get("skip3"), policy=policy, use_pallas=use_pallas,
-            mesh=mesh)
-        x2_out, new_state["skip2"] = convlstm(
-            m.lstm_skip2, to_time_major(x2, B, T, lay),
-            state=state.get("skip2"), policy=policy, use_pallas=use_pallas,
-            mesh=mesh)
-        x3 = to_batch_major(x3_out, B, T, lay)
-        x2 = to_batch_major(x2_out, B, T, lay)
+    with trace.span("model.recurrence", device=dev):
+        xb_out_tm, new_temporal = convlstm(
+            m.temporal, to_time_major(xb, B, T, lay),
+            state=state.get("temporal"), policy=policy,
+            use_pallas=use_pallas, mesh=mesh)
+        new_state: Dict[str, Any] = {"temporal": new_temporal}
+        if cfg.use_skip_lstm:
+            x3_out, new_state["skip3"] = convlstm(
+                m.lstm_skip3, to_time_major(x3, B, T, lay),
+                state=state.get("skip3"), policy=policy,
+                use_pallas=use_pallas, mesh=mesh)
+            x2_out, new_state["skip2"] = convlstm(
+                m.lstm_skip2, to_time_major(x2, B, T, lay),
+                state=state.get("skip2"), policy=policy,
+                use_pallas=use_pallas, mesh=mesh)
+            x3 = to_batch_major(x3_out, B, T, lay)
+            x2 = to_batch_major(x2_out, B, T, lay)
+        xb_bt = to_batch_major(xb_out_tm, B, T, lay)
 
-    xb_bt = to_batch_major(xb_out_tm, B, T, lay)
-    y_bt, dec_stats = remat_call(remat, _decode, m, xb_bt.to(x_bt.dtype),
-                                   (x3, x2, x1, x0), train, policy, fused,
-                                   mesh)
-    y_seq = unflatten_seq(y_bt, B, T, lay)
+    with trace.span("model.decoder", device=dev):
+        y_bt, dec_stats = remat_call(remat, _decode, m,
+                                     xb_bt.to(x_bt.dtype), (x3, x2, x1, x0),
+                                     train, policy, fused, mesh)
+        y_seq = unflatten_seq(y_bt, B, T, lay)
     return y_seq, new_state, {**enc_stats, **dec_stats}
 

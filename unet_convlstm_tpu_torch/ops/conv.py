@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.dtypes import DEFAULT_POLICY, Policy, full_fp32
+from ..core.kept import kept
 from ..parallel.mesh import global_sum
 from ..parallel.tensor import copy_to_model, gather_from_model, shard_mesh
 
@@ -166,7 +167,7 @@ def conv2d(x: torch.Tensor, weight: Union[torch.Tensor, nn.Module],
     if tp is not None:
         y = gather_from_model(y, tp)
     if bias is not None:
-        y = y + bias.to(y.dtype)
+        y = y + policy.cast_param(bias)
     return y
 
 
@@ -200,7 +201,7 @@ def conv_transpose2d(x: torch.Tensor, weight: Union[torch.Tensor, nn.Module],
     if tp is not None:
         y = gather_from_model(y, tp)
     if bias is not None:
-        y = y + bias.to(y.dtype)
+        y = y + policy.cast_param(bias)
     return y
 
 
@@ -233,6 +234,28 @@ def _running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
             (1 - momentum) * bn.running_var + momentum * unbiased)
 
 
+def _affine(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
+            eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(inv, shift) with y = x * inv + shift, from (mean, var)."""
+    inv = torch.rsqrt(var + eps) * bn.weight
+    return inv, bn.bias - mean * inv
+
+
+def eval_affine(bn: nn.BatchNorm2d, dtype: torch.dtype, eps: float = 1e-5
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference-mode BN's per-channel (inv, shift) from the running
+    statistics, computed in f32 and cast to ``dtype``. With gradients off
+    (serving, a frozen encoder) they are computed once per set of weights
+    (``core/kept.py``), so that a request or a frozen forward launches two
+    ops a BatchNorm instead of nine."""
+    def compute():
+        inv, shift = _affine(bn, bn.running_mean, bn.running_var, eps)
+        return inv.to(dtype), shift.to(dtype)
+    return kept(bn, ("eval_affine", dtype, eps),
+                (bn.weight, bn.bias, bn.running_mean, bn.running_var),
+                compute)
+
+
 def batchnorm_from_sums(bn: nn.BatchNorm2d, total: Optional[torch.Tensor],
                         total_sq: Optional[torch.Tensor], n: int,
                         train: bool, momentum: float = 0.1,
@@ -254,13 +277,10 @@ def batchnorm_from_sums(bn: nn.BatchNorm2d, total: Optional[torch.Tensor],
         mean = total / n
         mean_sq = total_sq / n
         var = torch.clamp_min(mean_sq - mean * mean, 0.0)
-        new_stats = _running_stats(bn, mean, var, n, momentum)
-    else:
-        mean, var = bn.running_mean, bn.running_var
-        new_stats = (mean, var)
-    inv = torch.rsqrt(var + eps) * bn.weight
-    shift = bn.bias - mean * inv
-    return inv, shift, new_stats
+        return (*_affine(bn, mean, var, eps),
+                _running_stats(bn, mean, var, n, momentum))
+    inv, shift = eval_affine(bn, torch.float32, eps)
+    return inv, shift, (bn.running_mean, bn.running_var)
 
 
 def batchnorm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool,
@@ -279,10 +299,7 @@ def batchnorm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool,
             mean, mean_sq, n = both[0], both[1], n * mesh.data
         var = torch.clamp_min(mean_sq - mean * mean, 0.0)
         new_stats = _running_stats(bn, mean, var, n, momentum)
-    else:
-        mean, var = bn.running_mean, bn.running_var
-        new_stats = (mean, var)
-    inv = torch.rsqrt(var + eps) * bn.weight
-    shift = bn.bias - mean * inv
-    y = x * inv.to(x.dtype) + shift.to(x.dtype)
-    return y, new_stats
+        inv, shift = _affine(bn, mean, var, eps)
+        return x * inv.to(x.dtype) + shift.to(x.dtype), new_stats
+    inv, shift = eval_affine(bn, x.dtype, eps)
+    return x * inv + shift, (bn.running_mean, bn.running_var)

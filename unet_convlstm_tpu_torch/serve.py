@@ -32,8 +32,10 @@ Device work is serialized with a lock (one card, many HTTP threads).
 A request's spans (``core/trace.py``): ``serve.stage_in`` (the frame
 blocks written into the host buffer and copied on to the card, the
 sessions' rows of the state gathered where they are not the whole group),
-``serve.forward`` (the step's dispatch) and ``serve.stage_out`` (the
-card→host copy, the new state written back, one array a session).
+``serve.forward`` (the step's dispatch, in which the model's
+``model.encoder``, ``model.recurrence`` and ``model.decoder`` nest) and
+``serve.stage_out`` (the card→host copy, the new state written back, one
+array a session).
 ``state_counts()`` counts the requests of each state path.
 
 ``int8=True`` serves the post-training int8 model (``ops/quant.py``): every
@@ -130,8 +132,11 @@ class StreamingPredictor:
         model_state, meta = restore_checkpoint(checkpoint_path)
         model_cfg = meta["config"].get("model", meta["config"])
         self.model_cfg = dict(model_cfg)
+        # the checkpoint holds every weight, a ResNet18 encoder's included:
+        # the registry looks for no ImageNet .pth and keeps the saved
+        # freeze_encoder
         self.cfg, init, self._apply_fn, self._init_state = build_model(
-            model_cfg)
+            dict(model_cfg, pretrained_resolved=True))
         self.model = model_from_checkpoint(init, model_state, meta,
                                            self.device)
         if "norm_stats" not in meta:
